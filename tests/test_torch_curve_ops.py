@@ -4,7 +4,8 @@ BN254 G1 and G2 at 8 lanes through zksnake_tpu.backend.curve_ops (JAX,
 eager on the CPU) and zksnake_tpu_torch.backend.curve_ops (device="cpu").
 Both run the same RCB15 formulas on canonical field elements, so every
 output coordinate matches limb for limb. The lanes include the identity,
-P + P and P + (-P).
+P + P and P + (-P). Each package gets the points and curve parameters of
+its own curve module, made from the same scalars.
 """
 
 import numpy as np
@@ -17,16 +18,20 @@ import torch
 from zksnake_tpu.backend.curve_ops import get_group_spec as jax_group
 from zksnake_tpu.curves import ec_bn254
 from zksnake_tpu_torch.backend.curve_ops import get_group_spec as torch_group
+from zksnake_tpu_torch.curves import get_curve_module
 
 torch.set_num_threads(1)
 
-CURVE = ec_bn254._curve
+JAX_CURVE = ec_bn254._curve
+PORT = get_curve_module("BN254", "cpu")
+CURVE = PORT._curve
 
 
-def host_points(group, seed):
+def host_points(group, seed, module=PORT):
     """P lanes, Q lanes (Q never the identity) and the lane pattern:
-    lane 0 P = identity, lane 1 Q = P (doubling), lane 2 Q = -P."""
-    gen = ec_bn254.g1() if group == 1 else ec_bn254.g2()
+    lane 0 P = identity, lane 1 Q = P (doubling), lane 2 Q = -P; as points of
+    `module` (the port's curve module, or the JAX package's)."""
+    gen = module.g1() if group == 1 else module.g2()
     rng = np.random.default_rng(seed)
     ks = [int(k) for k in rng.integers(1, 1 << 40, size=16)]
     P = [gen * k for k in ks[:8]]
@@ -56,7 +61,7 @@ def same(Pj, Pt, gs_t):
 
 @pytest.mark.parametrize("group", [1, 2])
 def test_add_double_add_affine_match_jax(group):
-    gs_j, gs_t = jax_group(CURVE, group), torch_group(CURVE, group)
+    gs_j, gs_t = jax_group(JAX_CURVE, group), torch_group(CURVE, group)
     P, Q = host_points(group, group)
     Pj, Pt = projective(gs_t, gs_j, P)
     Qj, Qt = projective(gs_t, gs_j, Q)
@@ -64,16 +69,19 @@ def test_add_double_add_affine_match_jax(group):
     same(gs_j.double(Pj), gs_t.double(Pt), gs_t)
     # mixed add of the affine 2Q: lane 1 doubles, lane 2 cancels
     Q2 = [q + q for q in Q]
-    Qa_j = gs_j.points_to_device(Q2)
+    P_jax, Q_jax = host_points(group, group, ec_bn254)
+    Qa_j = gs_j.points_to_device([q + q for q in Q_jax])
+    assert [q.to_bytes() for q in Q_jax] == [q.to_bytes() for q in Q]
     Qa_t = gs_t.points_to_device(Q2, "cpu")
     same(gs_j.add_affine(Pj, Qa_j[:2]), gs_t.add_affine(Pt, Qa_t[:2]), gs_t)
     got = gs_t.points_from_device(gs_t.add_affine(Pt, Qa_t[:2]), type(P[0]))
-    assert got == [p + p + q for p, q in zip(P, Q2)]
-    assert got[2] == type(P[0]).identity()
+    want = [p + p + q + q for p, q in zip(P_jax, Q_jax)]  # the JAX host's sums
+    assert [g.to_bytes() for g in got] == [w.to_bytes() for w in want]
+    assert want[2].to_bytes() == type(P_jax[0]).identity().to_bytes()
 
 
 def test_to_affine_matches_jax_g1():
-    gs_j, gs_t = jax_group(CURVE, 1), torch_group(CURVE, 1)
+    gs_j, gs_t = jax_group(JAX_CURVE, 1), torch_group(CURVE, 1)
     P, _ = host_points(1, 3)
     Pj, Pt = projective(gs_t, gs_j, P)
     (xj, yj), inf_j = gs_j.to_affine(Pj)
@@ -86,15 +94,17 @@ def test_to_affine_matches_jax_g1():
 
 
 def test_to_affine_matches_host_g2():
+    """Against the JAX package's host doubling of the same points."""
     gs_t = torch_group(CURVE, 2)
     P, _ = host_points(2, 4)
     Pt = gs_t.double(gs_t.points_to_device(P, "cpu"))
     (xt, yt), inf = gs_t.to_affine(Pt)
     fs = gs_t.fs
-    for i, pt in enumerate(P):
+    P_jax, _ = host_points(2, 4, ec_bn254)
+    for i, pt in enumerate(P_jax):
         dbl = pt + pt
+        assert bool(inf[i]) == (dbl._affine() is None)
         if inf[i]:
-            assert dbl == type(pt).identity()
             continue
         x, y = dbl._affine()
         assert (fs.from_mont_host(xt[0][:, i:i + 1])[0], fs.from_mont_host(xt[1][:, i:i + 1])[0]) == x

@@ -6,10 +6,12 @@ the card:
 
     python -m pytest tests/test_torch_kernels_cuda.py -q
 
-K1 and K2 must match their plain versions limb for limb (integer field
-arithmetic has no tolerance), each wrapper must count one launch per call,
-refuse what its kernel does not take, and the MSM and the fixture proof must
-come out the same on the card as on the host.
+K1, K2 (16- and 24-limb builds) and K3 must match their plain versions limb
+for limb (integer field arithmetic has no tolerance), each wrapper must
+count one launch per call, refuse what its kernel does not take, and the
+MSM and the fixture proofs must come out the same on the card as on the
+host. The MSM oracle is the JAX package's host bigint MSM, whose modules
+import no jax, so the file runs where jax is not installed.
 """
 
 import random
@@ -20,17 +22,18 @@ import pytest
 import torch
 
 from zksnake_tpu.backend.dispatch import _host_msm
-from zksnake_tpu.constant import BLS12_381_MODULUS, BN254_MODULUS, BN254_SCALAR_FIELD
 from zksnake_tpu.curves import ec_bn254
+from zksnake_tpu_torch import BLS12_381_MODULUS, BN254_MODULUS, BN254_SCALAR_FIELD
 from zksnake_tpu_torch.backend import kernels
 from zksnake_tpu_torch.backend import msm as tmsm
 from zksnake_tpu_torch.backend.curve_ops import get_group_spec
 from zksnake_tpu_torch.backend.field import FieldSpec
+from zksnake_tpu_torch.curves import get_curve_module
 
 pytestmark = pytest.mark.cuda
 
-CURVE = ec_bn254._curve
-FIXTURE = Path(__file__).resolve().parent / "fixtures" / "groth16_bn254.hex"
+FIXTURES = Path(__file__).resolve().parent / "fixtures"
+FIELDS = [BN254_SCALAR_FIELD, BN254_MODULUS, BLS12_381_MODULUS]
 
 
 @pytest.fixture
@@ -49,7 +52,7 @@ def random_elems(fs, n, seed):
     return torch.from_numpy(limbs.astype(np.int32))
 
 
-@pytest.mark.parametrize("p", [BN254_SCALAR_FIELD, BN254_MODULUS, BLS12_381_MODULUS])
+@pytest.mark.parametrize("p", FIELDS)
 def test_mont_mul_kernel_matches_plain(card, p):
     fs = FieldSpec.get(p)
     a = random_elems(fs, 4099, 1).to(card)
@@ -61,14 +64,32 @@ def test_mont_mul_kernel_matches_plain(card, p):
     assert torch.equal(got, kernels.mont_mul_plain(fs, a, b))
 
 
+@pytest.mark.parametrize("p", FIELDS)
+def test_mont_mul_mma_kernel_matches_plain(card, p):
+    """K3 (ragged edge included: 4099 lanes is not a multiple of the block)
+    against its plain version and against K1."""
+    fs = FieldSpec.get(p)
+    a = random_elems(fs, 4099, 3).to(card)
+    b = random_elems(fs, 4099, 4).flip(1).contiguous().to(card)
+    before = kernels.LAUNCHES["mont_mul_mma"]
+    got = kernels.mont_mul_mma(fs, a, b)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["mont_mul_mma"] == before + 1
+    assert torch.equal(got, kernels.mont_mul_mma_plain(fs, a, b))
+    assert torch.equal(got, kernels.mont_mul(fs, a, b))
+
+
+@pytest.mark.parametrize("curve", ["BN254", "BLS12_381"])
 @pytest.mark.parametrize("group", [1, 2])
-def test_bucket_kernel_matches_plain(card, group):
-    gs = get_group_spec(CURVE, group)
-    gen = ec_bn254.g1() if group == 1 else ec_bn254.g2()
+def test_bucket_kernel_matches_plain(card, curve, group):
+    cm = get_curve_module(curve, card)
+    gs = get_group_spec(cm._curve, group)
+    gen = cm.g1() if group == 1 else cm.g2()
     base = gs.points_to_device([gen * (i + 1) for i in range(32)], card)
     P = gs.map(lambda t: t.repeat(1, 16), base)  # 512 points
     rng = random.Random(group)
-    s = tmsm.scalars_to_device([rng.randrange(CURVE.r) for _ in range(512)], CURVE.r, card)
+    r = cm._curve.r
+    s = tmsm.scalars_to_device([rng.randrange(r) for _ in range(512)], r, card)
     pts, starts, lens, _, _ = tmsm.sort_by_digit(gs, P, s, 7)
     before = kernels.LAUNCHES["bucket_accumulate"]
     got = kernels.bucket_accumulate(gs, pts, starts, lens)
@@ -80,45 +101,61 @@ def test_bucket_kernel_matches_plain(card, group):
 def test_wrappers_refuse_what_the_kernels_do_not_take(card):
     fs = FieldSpec.get(BN254_MODULUS)
     a = random_elems(fs, 64, 3).to(card)
-    with pytest.raises(TypeError):
-        kernels.mont_mul(fs, a.long(), a.long())
-    with pytest.raises(ValueError):
-        kernels.mont_mul(fs, a[:, ::2], a[:, ::2])
-    with pytest.raises(ValueError):
-        kernels.mont_mul(fs, a, a.cpu())
+    for fn in (kernels.mont_mul, kernels.mont_mul_mma):
+        with pytest.raises(TypeError):
+            fn(fs, a.long(), a.long())
+        with pytest.raises(ValueError):
+            fn(fs, a[:, ::2], a[:, ::2])
+        with pytest.raises(ValueError):
+            fn(fs, a, a.cpu())
 
 
 @pytest.mark.parametrize("group", [1, 2])
 def test_msm_on_card_matches_host_oracle(card, group):
-    gen = ec_bn254.g1() if group == 1 else ec_bn254.g2()
-    points = [gen * (3 * i + 1) for i in range(300)]
-    points[7] = type(gen).identity()
+    def case(module):
+        gen = module.g1() if group == 1 else module.g2()
+        points = [gen * (3 * i + 1) for i in range(300)]
+        points[7] = type(gen).identity()
+        return points
+
+    cm = get_curve_module("BN254", card)
+    points = case(cm)
     rng = random.Random(10 + group)
-    scalars = [rng.randrange(CURVE.r) for _ in range(300)]
-    scalars[0], scalars[1] = 0, CURVE.r - 1
-    got = tmsm.msm_device(CURVE, group, points, scalars, type(gen), card)
-    assert got == _host_msm(ec_bn254, points, scalars)
+    r = cm._curve.r
+    scalars = [rng.randrange(r) for _ in range(300)]
+    scalars[0], scalars[1] = 0, r - 1
+    got = tmsm.msm_device(cm._curve, group, points, scalars, type(points[0]), card)
+    assert got.to_bytes() == _host_msm(ec_bn254, case(ec_bn254), scalars).to_bytes()
 
 
-def test_fixture_proof_on_card(card, monkeypatch):
-    from zksnake_tpu_torch import ConstraintSystem, R1CS, Var
+@pytest.mark.parametrize("mxu", ["0", "1"])
+@pytest.mark.parametrize("curve", ["BN254", "BLS12_381"])
+def test_fixture_proof_on_card(card, curve, mxu, monkeypatch):
+    from zksnake_tpu_torch import BLS12_381_SCALAR_FIELD, ConstraintSystem, R1CS, Var
+    from zksnake_tpu_torch.backend import field
     from zksnake_tpu_torch.groth16 import Groth16, protocol
 
-    rng = random.Random("g16-BN254")
+    monkeypatch.setenv("ZKSNAKE_MXU_MONTMUL", mxu)
+    monkeypatch.setattr(field, "MXU_MIN_LANES", 16)  # K3 at this small size too
+    rng = random.Random(f"g16-{curve}")
     monkeypatch.setattr(protocol, "get_random_int", lambda n_max: 1 + rng.randrange(n_max))
     inp, out = Var("inp"), Var("out")
     v = [Var(f"v{i}") for i in range(15)]
-    cs = ConstraintSystem(["inp"], ["out"], BN254_SCALAR_FIELD)
+    fr = BN254_SCALAR_FIELD if curve == "BN254" else BLS12_381_SCALAR_FIELD
+    cs = ConstraintSystem(["inp"], ["out"], fr)
     cs.add_constraint(v[0] == inp * inp)
     for i in range(1, 15):
         cs.add_constraint(v[i] == v[i - 1] * inp)
     cs.add_constraint(out == v[14])
     cs.set_public(out)
-    r1cs = R1CS(cs)
+    r1cs = R1CS(cs, curve)
     r1cs.compile()
     pub, priv = r1cs.generate_witness(cs.solve({"inp": 3}))
-    g16 = Groth16(r1cs, "BN254", device=card)
+    g16 = Groth16(r1cs, curve, device=card)
+    before = kernels.LAUNCHES["mont_mul_mma"]
     g16.setup()
     proof = g16.prove(pub, priv)
-    assert proof.to_bytes() == bytes.fromhex(FIXTURE.read_text().strip())
+    assert (kernels.LAUNCHES["mont_mul_mma"] > before) == (mxu == "1")
+    want = (FIXTURES / f"groth16_{curve.lower()}.hex").read_text().strip()
+    assert proof.to_bytes() == bytes.fromhex(want)
     assert g16.verify(proof, pub)

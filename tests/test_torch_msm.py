@@ -8,8 +8,11 @@
   buckets match limb for limb.
 - msm_pippenger against zksnake_tpu.backend.dispatch._host_msm (the host
   bigint oracle), G1 and G2, with identity points, zero scalars, r - 1 and
-  a long run of repeated scalars.
-- fixed-base and per-lane batch scalar multiplication against host g * s.
+  a long run of repeated scalars: the port's points and the JAX package's
+  are made from the same scalars, each by its own curve module, and the
+  results are compared as compressed bytes.
+- fixed-base and per-lane batch scalar multiplication against the JAX
+  package's host g * s on the same scalars, compared as compressed bytes.
 
 Everything runs on device="cpu" (the kernels' plain versions).
 """
@@ -27,11 +30,18 @@ from zksnake_tpu.curves import ec_bn254
 from zksnake_tpu_torch.backend import kernels
 from zksnake_tpu_torch.backend import msm as tmsm
 from zksnake_tpu_torch.backend.curve_ops import get_group_spec as torch_group
+from zksnake_tpu_torch.curves import get_curve_module
 from zksnake_tpu_torch.ecc import EllipticCurve
 
 torch.set_num_threads(1)
 
-CURVE = ec_bn254._curve
+JAX_CURVE = ec_bn254._curve
+PORT = get_curve_module("BN254", "cpu")
+CURVE = PORT._curve
+
+
+def gen_of(module, group):
+    return module.g1() if group == 1 else module.g2()
 
 
 def chain(gen, n, step_k, identities=()):
@@ -70,9 +80,9 @@ def test_bucket_plain_matches_pallas_kernel_g1(monkeypatch):
     from zksnake_tpu.backend import pallas_field
 
     R, B = 3, 8
-    gs_j, gs_t = jax_group(CURVE, 1), torch_group(CURVE, 1)
+    gs_j, gs_t = jax_group(JAX_CURVE, 1), torch_group(CURVE, 1)
     starts, lens = sorted_runs(11, B, R)
-    points = chain(ec_bn254.g1(), int(lens.sum()), 5)
+    points = chain(PORT.g1(), int(lens.sum()), 5)
     got, leaves = port_buckets(gs_t, points, starts, lens)
     # the Pallas kernel's packed round-major table of the same runs
     nl = gs_t.fs.nl
@@ -95,9 +105,9 @@ def test_bucket_plain_matches_pallas_kernel_g1(monkeypatch):
 
 def test_bucket_plain_matches_jax_round_loop_g2():
     R, B = 3, 8
-    gs_j, gs_t = jax_group(CURVE, 2), torch_group(CURVE, 2)
+    gs_j, gs_t = jax_group(JAX_CURVE, 2), torch_group(CURVE, 2)
     starts, lens = sorted_runs(12, B, R)
-    points = chain(ec_bn254.g2(), int(lens.sum()), 3)
+    points = chain(PORT.g2(), int(lens.sum()), 3)
     got, leaves = port_buckets(gs_t, points, starts, lens)
     bucket = gs_j.identity((B,))
     n = int(lens.sum())
@@ -110,9 +120,9 @@ def test_bucket_plain_matches_jax_round_loop_g2():
         np.testing.assert_array_equal(np.asarray(a).astype(np.int64), b)
 
 
-def msm_case(group, n, seed):
-    gen = ec_bn254.g1() if group == 1 else ec_bn254.g2()
-    points = chain(gen, n, 11 + seed, identities={3, n - 1})
+def msm_case(group, n, seed, module=PORT):
+    """Points of `module` and scalars of one MSM case."""
+    points = chain(gen_of(module, group), n, 11 + seed, identities={3, n - 1})
     rng = np.random.default_rng(seed)
     r = CURVE.r
     scalars = [int.from_bytes(rng.bytes(32), "little") % r for _ in range(n)]
@@ -130,7 +140,8 @@ def test_msm_matches_host_oracle_small(group):
     points, scalars = msm_case(group, 64, group)
     cls = type(points[0])
     got = tmsm.msm_device(CURVE, group, points, scalars, cls, "cpu")
-    assert got == _host_msm(ec_bn254, points, scalars)
+    jax_points, _ = msm_case(group, 64, group, ec_bn254)
+    assert got.to_bytes() == _host_msm(ec_bn254, jax_points, scalars).to_bytes()
 
 
 @pytest.mark.parametrize("group", [1, 2])
@@ -139,24 +150,27 @@ def test_msm_through_ecc_matches_host_oracle(group):
     the port's Pippenger on the given device."""
     points, scalars = msm_case(group, 300, 10 + group)
     got = EllipticCurve("BN254", device="cpu").multiexp(points, scalars)
-    assert got == _host_msm(ec_bn254, points, scalars)
+    jax_points, _ = msm_case(group, 300, 10 + group, ec_bn254)
+    assert got.to_bytes() == _host_msm(ec_bn254, jax_points, scalars).to_bytes()
 
 
 @pytest.mark.parametrize("group", [1, 2])
 def test_fixed_base_batch_mul_matches_host(group):
-    gen = ec_bn254.g1() if group == 1 else ec_bn254.g2()
+    gen = gen_of(PORT, group)
     r = CURVE.r
     scalars = [0, 1, 2, r - 1, 0xDEADBEEF, r // 3, (1 << 200) + 5, 255]
     got = tmsm.batch_mul_fixed_base(CURVE, group, gen, scalars, type(gen), "cpu")
-    assert got == [gen * s for s in scalars]
+    jax_gen = gen_of(ec_bn254, group)
+    assert [p.to_bytes() for p in got] == [(jax_gen * s).to_bytes() for s in scalars]
 
 
 def test_per_lane_batch_mul_matches_host():
-    gen = ec_bn254.g1()
-    points = chain(gen, 4, 9, identities={2})
+    points = chain(PORT.g1(), 4, 9, identities={2})
     scalars = [3, CURVE.r - 2, 77, 0]
-    got = tmsm.batch_mul_device(CURVE, 1, points, scalars, type(gen), "cpu")
-    assert got == [p * s for p, s in zip(points, scalars)]
+    got = tmsm.batch_mul_device(CURVE, 1, points, scalars, type(points[0]), "cpu")
+    jax_points = chain(ec_bn254.g1(), 4, 9, identities={2})
+    want = [(p * s).to_bytes() for p, s in zip(jax_points, scalars)]
+    assert [p.to_bytes() for p in got] == want
 
 
 def test_signed_digits_recompose():

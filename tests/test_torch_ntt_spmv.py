@@ -23,8 +23,10 @@ from zksnake_tpu.backend import spmv as jax_spmv
 from zksnake_tpu.backend.field import FieldSpec as JaxFieldSpec
 from zksnake_tpu.backend.field import mont_mul as jax_mont_mul
 from zksnake_tpu.constant import BLS12_381_SCALAR_FIELD, BN254_SCALAR_FIELD
-from zksnake_tpu.curves.params import CURVES
+from zksnake_tpu.curves.params import CURVES as JAX_CURVES
+from zksnake_tpu_torch import polynomial as port_poly
 from zksnake_tpu_torch.backend import ntt as tntt
+from zksnake_tpu_torch.curves.params import CURVES
 from zksnake_tpu_torch.backend.field import FieldSpec, mont_mul
 from zksnake_tpu_torch.backend.spmv import DeviceSparseMatrix, reduce_wide, segment_sum_field
 
@@ -44,7 +46,7 @@ KINDS = {
 def test_transforms_match_host(curve, n):
     params = CURVES[curve]
     dom = tntt.Domain.get(params, n)
-    assert dom.omega == jax_ntt.Domain.get(params, n).omega
+    assert dom.omega == jax_ntt.Domain.get(JAX_CURVES[curve], n).omega
     rng = np.random.default_rng(n)
     vals = [int.from_bytes(rng.bytes(32), "little") % params.r for _ in range(n)]
     x = dom.fs.to_device(dom.fs.to_mont_host(vals), "cpu")
@@ -52,6 +54,8 @@ def test_transforms_match_host(curve, n):
         got = dom.fs.from_mont_host(tntt.transform(dom, x, kind))
         assert got == host(vals, params.r), kind
     assert tntt.transform_host(params, vals, n, "fft", "cpu") == host_poly.fft(vals, params.r)
+    for kind, host in KINDS.items():  # the port's own host polynomial module
+        assert getattr(port_poly, kind)(vals, params.r, device="cpu") == host(vals, params.r)
 
 
 def _column(k, seed):

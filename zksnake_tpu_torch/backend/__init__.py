@@ -1,3 +1,3 @@
 """Torch compute core of the port: limb-tensor field arithmetic, point
-arithmetic, MSM, NTT, SpMV and the fused Groth16 prover, with the two
-hand-written CUDA kernels in kernels.py (sources in ../csrc)."""
+arithmetic, MSM, NTT, SpMV and the fused Groth16 prover, with the
+hand-written CUDA kernels K1-K3 bound in kernels.py (sources in ../csrc)."""

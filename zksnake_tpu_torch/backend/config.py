@@ -17,6 +17,13 @@ PLONK_DEVICE_THRESHOLD = int(os.environ.get("ZKSNAKE_PLONK_THRESHOLD", "2048"))
 MLE_DEVICE_THRESHOLD = int(os.environ.get("ZKSNAKE_MLE_THRESHOLD", "4096"))
 
 
+def mxu_montmul():
+    """ZKSNAKE_MXU_MONTMUL=1 routes large flat Montgomery products to K3,
+    the tensor-core reduction (read at call time, as
+    zksnake_tpu/backend/field.py::_mxu_montmul does); K1 is the default."""
+    return os.environ.get("ZKSNAKE_MXU_MONTMUL", "0") == "1"
+
+
 def check_device(device):
     """torch.device for `device`; raises when it is CUDA and no CUDA device
     is present (no silent move to the CPU)."""

@@ -335,8 +335,8 @@ class GroupSpec:
     # ---------- host <-> device conversion ----------
     def _batch_affine(self, points):
         """Affine coords of host points via ONE batched inversion."""
-        from zksnake_tpu.utils import batch_modinv
-        from zksnake_tpu.curves.tower import Fq2Ops
+        from ..curves.tower import Fq2Ops
+        from ..utils import batch_modinv
 
         p = self.fs.p
         idxs, zs = [], []
@@ -408,7 +408,7 @@ class GroupSpec:
                     # homogeneous (X:Y:Z) -> Jacobian (X*Z, Y*Z^2, Z)
                     out.append(point_cls._from_jac((x * z % p, y * z % p * z % p, z)))
             return out
-        from zksnake_tpu.curves.tower import Fq2Ops
+        from ..curves.tower import Fq2Ops
 
         f2 = Fq2Ops(p)
         for x0, x1, y0, y1, z0, z1 in zip(*vals):

@@ -2,12 +2,31 @@
 
 Port of zksnake_tpu/backend/dispatch.py: MSMs and batch scalar muls at or
 above their threshold run on the curve module's torch device; smaller ones
-run the JAX package's host path (`_host_msm`, pure Python).
+run the host path (`_host_msm`, pure Python).
 """
 
-from zksnake_tpu.backend.dispatch import _host_msm
-
 from . import config
+
+
+def _host_msm(curve_module, points, scalars):
+    """Shared-doubling binary MSM on host bigints:
+    acc = 2*acc; acc += P_i for each i with current bit set."""
+    r = curve_module._curve.r
+    ss = [int(s) % r for s in scalars]
+    n = len(points)
+    if n == 0:
+        raise ValueError("Number of points and scalars mismatch")
+    maxbits = max((s.bit_length() for s in ss), default=0)
+    cls = type(points[0])
+    acc = cls.identity()
+    if maxbits == 0:
+        return acc
+    for b in range(maxbits - 1, -1, -1):
+        acc = acc + acc
+        for i in range(n):
+            if (ss[i] >> b) & 1:
+                acc = acc + points[i]
+    return acc
 
 
 def msm(curve_module, points, scalars, group):

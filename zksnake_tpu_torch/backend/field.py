@@ -6,7 +6,10 @@ Montgomery form with R = 2^(16 nl) — the JAX package's layout, so state
 moves between the two by a dtype change and tests compare limb for limb.
 
 `mont_mul` is kernel K1 on a CUDA tensor and its plain int64 version on a
-CPU tensor (backend/kernels.py). The additive ops are plain torch: each
+CPU tensor (backend/kernels.py); with ZKSNAKE_MXU_MONTMUL=1 (read at call
+time, as the JAX package does) flat batches of at least MXU_MIN_LANES go to
+kernel K3, the Montgomery product with its reductions on the tensor cores,
+instead. CIOS (K1) stays the default. The additive ops are plain torch: each
 resolves its carry or borrow chain with a prefix scan (cummax over the limb
 axis) rather than a limb-by-limb loop, so an op is a fixed dozen tensor ops
 whatever nl is.
@@ -17,11 +20,13 @@ import ctypes
 import numpy as np
 import torch
 
-from zksnake_tpu.backend.limbs import W, MASK, n_limbs, ints_to_limbs, limbs_to_ints
-
-from . import kernels
+from . import config, kernels
+from .limbs import W, MASK, n_limbs, ints_to_limbs, limbs_to_ints
 
 DTYPE = torch.int32
+# smallest flat batch that ZKSNAKE_MXU_MONTMUL=1 sends to K3 (the JAX
+# package's Pallas threshold, zksnake_tpu/backend/field.py:279)
+MXU_MIN_LANES = 1 << 15
 
 
 class FieldSpec:
@@ -56,7 +61,7 @@ class FieldSpec:
     # ---------- host-side conversions (limbs-first, numpy uint32) ----------
     def to_mont_host(self, values):
         """ints -> (nl, n) Montgomery limb array (numpy)."""
-        from zksnake_tpu.native import get_codec
+        from ..native import get_codec
 
         codec = get_codec()
         if codec is not None:
@@ -123,6 +128,37 @@ class FieldSpec:
                 "p": limbs(self.p),
                 "pprime": limbs(pprime),
             }
+        return self._dev[key]
+
+    def mma_mats(self, device):
+        """K3's reduction matrices on `device` as float64: the NB x NB block
+        of PMAT and the 2NB x NB block of PPMAT (kernels._reduction_mats)."""
+        key = ("mma", str(device))
+        if key not in self._dev:
+            nb = 2 * self.nl
+            pmat, ppmat = kernels._reduction_mats(self.p, self.nl)
+            self._dev[key] = (
+                torch.from_numpy(pmat[:, :nb].astype(np.float64)).to(device),
+                torch.from_numpy(ppmat[: 2 * nb].astype(np.float64)).to(device),
+            )
+        return self._dev[key]
+
+    def mma_tiles(self, device):
+        """K3's matrices as the kernel reads them: the same two blocks as
+        mma_mats, as bytes, each cut into row-major 16x16 tiles stored one
+        after another (tile (mt, kt) at (mt * KT + kt) * 256), one uint8
+        tensor on `device`."""
+        key = ("mma_tiles", str(device))
+        if key not in self._dev:
+            nb = 2 * self.nl
+            pmat, ppmat = kernels._reduction_mats(self.p, self.nl)
+
+            def tiles(m):
+                mt, kt = m.shape[0] // 16, m.shape[1] // 16
+                return m.reshape(mt, 16, kt, 16).transpose(0, 2, 1, 3).reshape(-1)
+
+            flat = np.concatenate([tiles(pmat[:, :nb]), tiles(ppmat[: 2 * nb])])
+            self._dev[key] = torch.from_numpy(flat.astype(np.uint8)).to(device)
         return self._dev[key]
 
     def words(self, which):
@@ -223,12 +259,18 @@ def mont_mul(fs, a, b, plain=False):
     limb tensors. Operands are expanded to one shape first (as
     mont_mul_pallas does) and run as one flat (nl, N) launch of K1 on CUDA.
     plain=True forces the plain version (the reference the kernel is
-    checked against)."""
+    checked against). Under ZKSNAKE_MXU_MONTMUL=1 a launch of at least
+    MXU_MIN_LANES lanes goes to K3 instead."""
     nl = fs.nl
     shape = _bshape(a, b)
     a2 = _expand(a, nl, shape).reshape(nl, -1).contiguous()
     b2 = _expand(b, nl, shape).reshape(nl, -1).contiguous()
-    fn = kernels.mont_mul_plain if plain else kernels.mont_mul
+    if plain:
+        fn = kernels.mont_mul_plain
+    elif a2.shape[1] >= MXU_MIN_LANES and config.mxu_montmul():
+        fn = kernels.mont_mul_mma
+    else:
+        fn = kernels.mont_mul
     return fn(fs, a2, b2).reshape((nl,) + tuple(shape))
 
 

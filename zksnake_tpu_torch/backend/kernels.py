@@ -3,7 +3,10 @@ their launch counters.
 
 K1 `mont_mul` (csrc/montmul.cu) replaces
 zksnake_tpu/backend/pallas_field.py::_make_kernel; K2 `bucket_accumulate`
-(csrc/bucket.cu) replaces pallas_field.py::bucket_accumulate_pallas.
+(csrc/bucket.cu) replaces pallas_field.py::bucket_accumulate_pallas; K3
+`mont_mul_mma` (csrc/montmul_mma.cu) replaces pallas_field.py::_make_kernel_mxu
+(body mxu_field.py::mont_mul_mxu_cols), the Montgomery product whose two
+reduction products run on the matrix unit.
 
 Each wrapper takes its plain version for a tensor on the CPU and launches
 its kernel for a CUDA tensor; any other device, a failed build or a launch
@@ -16,15 +19,17 @@ Nothing here imports a CUDA toolchain at module import.
 """
 
 import ctypes
+import functools
 import os
 import shutil
 import subprocess
 import threading
 import time
 
+import numpy as np
 import torch
 
-from zksnake_tpu.backend.limbs import MASK, W
+from .limbs import MASK, W
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -36,12 +41,13 @@ NVCC_FLAGS = [
 # library -> (source, extra nvcc flags); K2 is built once per limb count
 _SOURCES = {
     "montmul": ("montmul.cu", []),
+    "montmul_mma": ("montmul_mma.cu", []),
     "bucket16": ("bucket.cu", ["-DZK_NL=16"]),
     "bucket24": ("bucket.cu", ["-DZK_NL=24"]),
 }
 
 # launches of each kernel since the last reset_launches()
-LAUNCHES = {"mont_mul": 0, "bucket_accumulate": 0}
+LAUNCHES = {"mont_mul": 0, "bucket_accumulate": 0, "mont_mul_mma": 0}
 
 _LIBS = {}
 _LOCK = threading.Lock()
@@ -122,6 +128,9 @@ def _lib(name):
                 lib.zk_mont_mul.restype = i
                 lib.zk_error_string.argtypes = [i]
                 lib.zk_error_string.restype = ctypes.c_char_p
+            elif name == "montmul_mma":
+                lib.zk_mont_mul_mma.argtypes = [vp, vp, vp, ll, i, vp, vp, vp]
+                lib.zk_mont_mul_mma.restype = i
             else:
                 lib.zk_bucket_accumulate.argtypes = [
                     vp, vp, vp, vp, i, i, i, i, ll, vp, u32, vp, vp, vp
@@ -222,6 +231,113 @@ def mont_mul(fs, a, b):
         )
     LAUNCHES["mont_mul"] += 1
     _check(rc, "mont_mul")
+    return out
+
+
+# -------------------------------------------------------------------- K3 --
+
+
+@functools.lru_cache(maxsize=None)
+def _reduction_mats(p: int, nl: int):
+    """(PMAT, PPMAT) numpy f32 constant matrices for modulus p, as
+    zksnake_tpu/backend/mxu_field.py::_reduction_mats builds them.
+
+    PMAT  (NB x NB+1): row k = byte k of m_conv: m[k] = sum_i T8[i]*P'[k-i]
+    PPMAT (2NB+1 x NB): row k = byte k of (m*p) conv (full, both halves)
+    where NB = 2*nl bytes per R-sized value and P' = -p^-1 mod R. Column NB
+    of PMAT and row 2NB of PPMAT are zero: the kernel and the plain version
+    use the NB x NB and 2NB x NB blocks."""
+    NB = 2 * nl
+    R = 1 << (W * nl)
+    pprime = (-pow(p, -1, R)) % R
+    pb = [(pprime >> (8 * i)) & 0xFF for i in range(NB)]
+    pbyte = [(p >> (8 * i)) & 0xFF for i in range(NB)]
+    PMAT = np.zeros((NB, NB + 1), dtype=np.float32)
+    for k in range(NB):
+        for i in range(NB + 1):
+            j = k - i
+            if 0 <= j < NB:
+                PMAT[k, i] = pb[j]
+    PPMAT = np.zeros((2 * NB + 1, NB), dtype=np.float32)
+    for k in range(2 * NB + 1):
+        for i in range(NB):
+            j = k - i
+            if 0 <= j < NB:
+                PPMAT[k, i] = pbyte[j]
+    return PMAT, PPMAT
+
+
+def mont_mul_mma_plain(fs, a, b):
+    """Plain version of K3 on any device: the SOS Montgomery product of
+    zksnake_tpu/backend/mxu_field.py::mont_mul_mxu_cols. a, b (nl, N) int32
+    16-bit limbs in Montgomery form -> a*b*R^-1 mod p, canonical.
+
+    T = a*b in lazy 16-bit int64 columns; its low half normalized to exact
+    limbs and cut into NB = 2 nl byte planes; m = (T mod R) P' mod R and
+    m p as float64 products against the byte-Toeplitz matrices (exact: every
+    sum is below 255^2 NB < 2^53; float64 because torch has no integer
+    matmul on CUDA, and TF32 never touches float64); one carry chain, then a
+    conditional subtract of p."""
+    from .field import _cond_sub_p
+
+    nl = fs.nl
+    NB = 2 * nl
+    pmat, ppmat = fs.mma_mats(a.device)
+    a = a.long()
+    b = b.long()
+    n = a.shape[1]
+    t = torch.zeros((2 * nl, n), dtype=torch.int64, device=a.device)
+    for i in range(nl):
+        t[i : i + nl] += a[i] * b  # columns < 2 nl 2^32
+    # exact 16-bit limbs of T mod R; the carry out moves into column nl
+    carry = torch.zeros_like(t[0])
+    for j in range(nl):
+        v = t[j] + carry
+        t[j] = v & MASK
+        carry = v >> W
+    t[nl] += carry
+    t8 = torch.stack([t[:nl] & 0xFF, t[:nl] >> 8], dim=1).reshape(NB, n)
+    m_conv = torch.matmul(pmat, t8.double()).long()  # (NB, n) < 255^2 NB
+    m8 = torch.empty_like(m_conv)
+    mc = torch.zeros_like(m_conv[0])
+    for k in range(NB):  # bytes of m mod R (the last carry is dropped)
+        v = m_conv[k] + mc
+        m8[k] = v & 0xFF
+        mc = v >> 8
+    mp = torch.matmul(ppmat, m8.double()).long()  # (2 NB, n) byte columns of m p
+    t += mp[0::2] + (mp[1::2] << 8)
+    out = []
+    c = torch.zeros_like(t[0])
+    for j in range(2 * nl):  # (T + m p) / R: the low half is zero
+        v = t[j] + c
+        if j >= nl:
+            out.append(v & MASK)
+        c = v >> W
+    return _cond_sub_p(fs, torch.stack(out).to(torch.int32), c)
+
+
+def mont_mul_mma(fs, a, b):
+    """K3 on CUDA, its plain version on the CPU. a, b: (nl, N) int32."""
+    dev = _device_of(a, b)
+    if dev.type == "cpu":
+        return mont_mul_mma_plain(fs, a, b)
+    if dev.type != "cuda":
+        raise ValueError(f"mont_mul_mma: unsupported device {dev}")
+    _require(a, "a")
+    _require(b, "b", a.shape)
+    if a.ndim != 2 or a.shape[0] != fs.nl:
+        raise ValueError(f"mont_mul_mma: expected ({fs.nl}, N), got {tuple(a.shape)}")
+    lib = _lib("montmul_mma")
+    mats = fs.mma_tiles(dev)
+    out = torch.empty_like(a)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.zk_mont_mul_mma(
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), a.shape[1], fs.nl,
+            ctypes.addressof(fs.words("p")), mats.data_ptr(), stream,
+        )
+    LAUNCHES["mont_mul_mma"] += 1
+    _check(rc, "mont_mul_mma")
     return out
 
 

@@ -22,11 +22,10 @@ ported. G2 runs the same Pippenger (no double-and-add detour).
 import numpy as np
 import torch
 
-from zksnake_tpu.backend.limbs import ints_to_limbs
-
+from . import kernels
 from .curve_ops import get_group_spec
 from .field import DTYPE, FieldSpec
-from . import kernels
+from .limbs import ints_to_limbs
 
 
 def _scalar_limbs(scalars, r, nl):

@@ -153,7 +153,7 @@ def transform(dom: Domain, x, kind):
 def transform_host(curve_or_field, vals, size, kind, device):
     """Host entry: list of ints -> list of ints via the device NTT (arkworks
     resize semantics: pad with zeros or truncate to the domain)."""
-    from zksnake_tpu.utils import next_power_of_two
+    from ..utils import next_power_of_two
 
     n = next_power_of_two(size) if size > 1 else 1
     dom = Domain.get(curve_or_field, n)

@@ -10,9 +10,8 @@ for any fan-out (the high-fanout case of spmv.py:76-81).
 
 import torch
 
-from zksnake_tpu.backend.limbs import MASK, W
-
 from .field import DTYPE, FieldSpec, _cond_sub_p, mod_add, mont_mul, sum_mod
+from .limbs import MASK, W
 
 
 class DeviceSparseMatrix:

@@ -29,13 +29,14 @@ def _point(leaves, device):
 
 def prover_state_from_jax(arrays, device, curve="BN254"):
     """State for Groth16DeviceProver.load_state from the JAX
-    Groth16DeviceProver's arrays as numpy.
+    Groth16DeviceProver's arrays as numpy, for `curve` "BN254" or
+    "BLS12_381" (the scalar field of the matrices' values).
 
     arrays: {"pk": {"tau1" | "tau2" | "target1" | "kdelta1": point leaves
     of _pk_dev (nested (X, Y, Z) tuples, G2 coordinates as pairs; kdelta1
     may be None)}, "A" | "B" | "C": {"rows", "cols", "vals", "n_row",
     "n_col"} of its DeviceSparseMatrix}."""
-    from zksnake_tpu.curves.params import CURVES
+    from ..curves.params import CURVES
 
     fr = FieldSpec.get(CURVES[curve].r)
     state = {"pk": {}}

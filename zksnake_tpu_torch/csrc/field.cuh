@@ -1,5 +1,5 @@
-// Montgomery field and curve arithmetic shared by the montmul (K1) and
-// bucket (K2) kernels.
+// Montgomery field and curve arithmetic shared by the montmul (K1),
+// bucket (K2) and montmul_mma (K3) kernels.
 //
 // Device tensors hold 16-bit limbs in int32 lanes, limbs-first (nl, N), as
 // zksnake_tpu.backend.field does. Inside a thread two limbs are paired into

@@ -1,5 +1,4 @@
 """Groth16 on the torch backend (same surface as zksnake_tpu.groth16)."""
 
-from zksnake_tpu.groth16.serialization import Proof, ProvingKey, VerifyingKey
-
 from .protocol import Groth16
+from .serialization import Proof, ProvingKey, VerifyingKey
