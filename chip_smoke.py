@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's Groth16 prover (BN254 and BLS12-381) once on one
-CUDA card.
+"""Drive the PyTorch port's Groth16 prover (BN254 and BLS12-381) and its
+PlonK prover (BN254) once on one CUDA card.
 
     python3 chip_smoke.py                 # all phases, one card
     python3 chip_smoke.py --phases 0,1,2  # a subset (kernel checks only)
@@ -17,18 +17,30 @@ Phases, one line each or more:
   3. K2 (bucket_accumulate) against its plain version, bit for bit, on one
      MSM's windows at the prove shape (2^17 points, c = 11), G1 and G2 of
      BN254 (16-limb build) and of BLS12-381 (24-limb build);
-  4. a device-resident BN254 G1 MSM at 2^20 against the host oracle
+  4. K2m (bucket_accumulate_mma) at the same four shapes against its plain
+     version and against K2, bit for bit, timed in turns with K2;
+  5. a device-resident BN254 G1 MSM at 2^20 against the host oracle
      G * sum(s_i (i % 64 + 1)) for points (i % 64 + 1) G;
-  5. the same MSM with ZKSNAKE_MXU_MONTMUL=1 (K3 for the large products);
-  6. the pinned proof fixtures tests/fixtures/groth16_{bn254,bls12_381}.hex
+  6. the same MSM with ZKSNAKE_MXU_MONTMUL=1 (K3 for the large products, K2m
+     for the buckets);
+  7. the same MSM over BN254 G2 at 2^20, against G2 * sum(s_i (i % 64 + 1));
+  8. the pinned proof fixtures tests/fixtures/groth16_{bn254,bls12_381}.hex
      reproduced on the card under the deterministic randomness streams;
-  7. a main path: the mult-chain circuit at 2^17 constraints through
+  9. the same for tests/fixtures/plonk_{bn254,bls12_381}.hex, with the
+     thresholds lowered so the setup's commitments and the fused prover run
+     on the card;
+ 10. a main path: the mult-chain circuit at 2^17 constraints through
      Groth16(r1cs, "BN254", device="cuda"): setup, a cold and a warm prove,
      verify, with every kernel's launch count during the warm prove;
-  8. a main path: the same at 2^17 over BLS12-381, a cold and a warm prove by
+ 11. a main path: the same at 2^17 over BLS12-381, a cold and a warm prove by
      default, then a warm prove with ZKSNAKE_MXU_MONTMUL=1 under the same
-     r, s: the two proofs are byte-equal and verify, and K3 launches only
-     under the flag.
+     r, s: the two proofs are byte-equal and verify, and K3 and K2m launch
+     (and K2 does not) only under the flag;
+ 12. a main path: the mult chain at 2^15 gates through Plonk(plonkish,
+     "BN254", device="cuda"): front end, setup, a cold and a warm prove,
+     verify, then a warm prove with ZKSNAKE_MXU_MONTMUL=1 under the same 11
+     blinds: byte-equal proofs that verify; K1 and K2 launch without the
+     flag, K1, K3 and K2m (and no K2) under it.
 
 It exits non-zero on any failure, when no CUDA device is present, and when
 jax or any module of zksnake_tpu was imported. The last four lines are the
@@ -51,6 +63,7 @@ K1_SHAPES = [("BN254_Fr", 16, 20), ("BN254_Fq", 16, 20), ("BLS12_381_Fq", 24, 18
 K2_CURVES = ["BN254", "BLS12_381"]
 PROVE_LOGN = 17
 MSM_LOGN = 20
+PLONK_LOGN = 15
 
 # Peak rates of one NVIDIA H100 SXM (dense): HBM3 3.35 TB/s and int8 tensor
 # cores 1,979 TOP/s (NVIDIA's data sheet); 32-bit integer multiply-adds at 64
@@ -154,7 +167,7 @@ def phase_build(ctx):
         kernels.build()
         build_s = time.perf_counter() - t0
         ptxas = {}
-        for name in ("montmul", "montmul_mma", "bucket16", "bucket24"):
+        for name in kernels._SOURCES:
             path = os.path.join(kernels.BUILD_DIR, f"{name}.ptxas.txt")
             if os.path.exists(path):
                 with open(path) as f:
@@ -303,10 +316,8 @@ def phase_k2(ctx):
             ms = ctx.time_ms(lambda: kernels.bucket_accumulate(gs, pts, starts, lens), 3)
             W_, B2 = starts.shape
             adds = int(lens.sum())  # mixed adds this data needs
-            nw = gs.fs.nl // 2
-            fmuls = 13 * (1 if group == 1 else 3)  # field.cuh::add_affine; Fq2 Karatsuba
             nbytes = 4 * (pts.numel() + starts.numel() + lens.numel() + got.numel())
-            bms, bby = bound(nbytes, [(adds * fmuls * cios_imads(nw), IMAD_OPS_S)])
+            bms, bby = _k2_bound(gs, adds, nbytes, False)
             row = {"curve": curve_name, "group": group, "points": n, "c": c, "windows": W_,
                    "buckets": B2, "max_run": int(lens.max()), "mixed_adds": adds,
                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
@@ -321,7 +332,76 @@ def phase_k2(ctx):
     ctx.kernels["bucket_accumulate"] = rows[0]
 
 
-def _msm_2e20(ctx, tag):
+def _k2_bound(gs, adds, nbytes, mma):
+    """K2's and K2m's bound: the mixed adds this data needs, 13 products
+    each (39 for G2's Karatsuba Fq2). A CIOS product is cios_imads words;
+    K2m's is the 2 NW^2 schoolbook multiply-adds and 3 NB^2 tensor-core
+    MACs (6 NB^2 operations)."""
+    nw = gs.fs.nl // 2
+    prods = adds * 13 * (1 if gs.group == 1 else 3)
+    if not mma:
+        return bound(nbytes, [(prods * cios_imads(nw), IMAD_OPS_S)])
+    nb = 4 * nw
+    return bound(nbytes, [(prods * 2 * nw * nw, IMAD_OPS_S),
+                          (prods * 6 * nb * nb, INT8_TC_OPS_S)])
+
+
+def phase_k2m(ctx):
+    from zksnake_tpu_torch.backend import kernels
+    from zksnake_tpu_torch.backend.curve_ops import get_group_spec
+    from zksnake_tpu_torch.backend.msm import scalars_to_device, sort_by_digit
+    from zksnake_tpu_torch.curves import get_curve_module
+
+    logn, c = (PROVE_LOGN, 11) if not ctx.rehearse else (9, 7)
+    n = 1 << logn
+    rows = []
+    for curve_name in K2_CURVES:
+        cm = get_curve_module(curve_name, ctx.device)
+        curve = cm._curve
+        rng = random.Random(0x2B)
+        for group in (1, 2):
+            gs = get_group_spec(curve, group)
+            P, _ = _tiled_points(gs, cm, n, ctx.device)
+            s = scalars_to_device([rng.randrange(curve.r) for _ in range(n)], curve.r, ctx.device)
+            pts, starts, lens, _, _ = sort_by_digit(gs, P, s, c)
+            got = kernels.bucket_accumulate_mma(gs, pts, starts, lens)
+            k2 = kernels.bucket_accumulate(gs, pts, starts, lens)
+            t0 = time.perf_counter()
+            want = kernels.bucket_accumulate_mma_plain(gs, pts, starts, lens)
+            ctx.sync()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            err = int((got.long() - want.long()).abs().max())
+            if err != 0:
+                raise AssertionError(f"K2m {curve_name} G{group}: kernel != plain (max |err| {err})")
+            if not ctx.torch.equal(got, k2):
+                raise AssertionError(f"K2m {curve_name} G{group}: kernel != K2")
+            # in turns, in one call: K2m, K2, K2, K2m
+            runs = {"k2m": lambda: kernels.bucket_accumulate_mma(gs, pts, starts, lens),
+                    "k2": lambda: kernels.bucket_accumulate(gs, pts, starts, lens)}
+            turns = [ctx.time_ms(runs[k], 3) for k in ("k2m", "k2", "k2", "k2m")]
+            ms, k2_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+            W_, B2 = starts.shape
+            adds = int(lens.sum())
+            nbytes = 4 * (pts.numel() + starts.numel() + lens.numel() + got.numel())
+            bms, bby = _k2_bound(gs, adds, nbytes, True)
+            row = {"curve": curve_name, "group": group, "points": n, "c": c, "windows": W_,
+                   "buckets": B2, "max_run": int(lens.max()), "mixed_adds": adds,
+                   "max_abs_err": err, "ms": ms, "k2_ms": k2_ms, "turns_ms": turns,
+                   "plain_ms": plain_ms, "bound_ms": bms, "bound_by": bby}
+            rows.append(row)
+            log(f"[4] K2m bucket_accumulate_mma {curve_name} G{group} 2^{logn} points c={c}: "
+                f"bit-identical to plain and K2; K2m {ms:.3f} ms, K2 {k2_ms:.3f} ms (turns "
+                + " ".join(f"{t:.3f}" for t in turns) + f"), plain {plain_ms:.1f} ms, "
+                f"bound {bms:.4f} ms ({bby})")
+            del pts, got, want, k2
+    ctx.detail["k2m"] = rows
+    ctx.kernels["bucket_accumulate_mma"] = rows[0]
+
+
+def _msm_2e20(ctx, tag, group=1):
+    """One warm-up and one timed device-resident BN254 MSM of 2^MSM_LOGN
+    points (i % 64 + 1) G of `group`, checked against the host oracle
+    G * sum(s_i (i % 64 + 1))."""
     from zksnake_tpu_torch.backend import kernels
     from zksnake_tpu_torch.backend.curve_ops import get_group_spec
     from zksnake_tpu_torch.backend.msm import msm_device_raw, scalars_to_device
@@ -329,7 +409,7 @@ def _msm_2e20(ctx, tag):
 
     cm = get_curve_module("BN254", ctx.device)
     curve = cm._curve
-    gs = get_group_spec(curve, 1)
+    gs = get_group_spec(curve, group)
     logn = MSM_LOGN if not ctx.rehearse else 10
     n = 1 << logn
     rng = random.Random(0xBEEF)
@@ -345,30 +425,42 @@ def _msm_2e20(ctx, tag):
     dt = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     total = sum(si * (i % 64 + 1) for i, si in enumerate(scalars))
-    want = cm.g1() * (total % curve.r)
-    got = gs.points_from_device(gs.map(lambda t: t[:, None], res), cm.PointG1)[0]
+    gen, cls = (cm.g1(), cm.PointG1) if group == 1 else (cm.g2(), cm.PointG2)
+    want = gen * (total % curve.r)
+    got = gs.points_from_device(gs.map(lambda t: t[:, None], res), cls)[0]
     if got != want:
-        raise AssertionError(f"G1 MSM ({tag}) result does not match the host oracle")
-    return {"points": n, "seconds": dt, "points_per_s": n / dt, "launches": launches}, logn
+        raise AssertionError(f"G{group} MSM ({tag}) result does not match the host oracle")
+    return {"group": group, "points": n, "seconds": dt, "points_per_s": n / dt,
+            "launches": launches}, logn
 
 
 def phase_msm(ctx):
     row, logn = _msm_2e20(ctx, "CIOS")
     ctx.detail["msm"] = row
-    log(f"[4] G1 MSM 2^{logn}: equals the host oracle; {row['seconds']:.4f} s, "
+    log(f"[5] G1 MSM 2^{logn}: equals the host oracle; {row['seconds']:.4f} s, "
         f"{row['points_per_s']:.1f} points/s; launches {row['launches']}")
 
 
 def phase_msm_mma(ctx):
     with flag_env("1"):
         row, logn = _msm_2e20(ctx, "ZKSNAKE_MXU_MONTMUL=1")
-    if ctx.device.type == "cuda" and row["launches"]["mont_mul_mma"] == 0:
-        raise AssertionError("the MSM under ZKSNAKE_MXU_MONTMUL=1 launched no K3")
+    if ctx.device.type == "cuda" and (row["launches"]["mont_mul_mma"] == 0
+                                      or row["launches"]["bucket_accumulate_mma"] == 0
+                                      or row["launches"]["bucket_accumulate"] != 0):
+        raise AssertionError(f"the MSM under ZKSNAKE_MXU_MONTMUL=1 did not run K3 and "
+                             f"K2m alone: {row['launches']}")
     ctx.detail["msm_mma"] = row
-    log(f"[5] G1 MSM 2^{logn}, ZKSNAKE_MXU_MONTMUL=1: equals the host oracle; "
+    log(f"[6] G1 MSM 2^{logn}, ZKSNAKE_MXU_MONTMUL=1: equals the host oracle; "
         f"{row['seconds']:.4f} s, {row['points_per_s']:.1f} points/s "
-        f"(CIOS in phase 4: {ctx.detail.get('msm', {}).get('seconds', float('nan')):.4f} s); "
+        f"(CIOS in phase 5: {ctx.detail.get('msm', {}).get('seconds', float('nan')):.4f} s); "
         f"launches {row['launches']}")
+
+
+def phase_msm_g2(ctx):
+    row, logn = _msm_2e20(ctx, "G2", group=2)
+    ctx.detail["msm_g2"] = row
+    log(f"[7] G2 MSM 2^{logn}: completes and equals the host oracle; {row['seconds']:.4f} s, "
+        f"{row['points_per_s']:.1f} points/s; launches {row['launches']}")
 
 
 def _det_random_int(seed):
@@ -401,6 +493,12 @@ def _mult_chain(n_power, curve, inp_value):
     return r1cs, pub, priv
 
 
+def _fixture_bytes(proto, curve):
+    path = os.path.join(REPO, "tests", "fixtures", f"{proto}_{curve.lower()}.hex")
+    with open(path) as f:
+        return bytes.fromhex(f.read().strip())
+
+
 def phase_fixtures(ctx):
     from zksnake_tpu_torch.groth16 import Groth16, protocol
 
@@ -415,20 +513,82 @@ def phase_fixtures(ctx):
             ok = g16.verify(proof, pub)
         finally:
             protocol.get_random_int = saved
-        path = os.path.join(REPO, "tests", "fixtures", f"groth16_{curve.lower()}.hex")
-        with open(path) as f:
-            want = bytes.fromhex(f.read().strip())
-        if proof.to_bytes() != want or not ok:
-            raise AssertionError(f"{curve} fixture proof bytes differ from {path}")
-        log(f"[6] fixture proof {curve}: byte-identical to "
+        if proof.to_bytes() != _fixture_bytes("groth16", curve) or not ok:
+            raise AssertionError(f"{curve} Groth16 fixture proof bytes differ")
+        log(f"[8] fixture proof {curve}: byte-identical to "
             f"tests/fixtures/groth16_{curve.lower()}.hex, verifies")
 
 
-def _prove_counted(ctx, g16, pub, priv, seed=None):
-    """One prove with every launch counter set to 0 just before it and read
-    just after; `seed` fixes r, s. Returns (proof, seconds, launches)."""
+class thresholds:
+    """The port's PlonK and MSM dispatch thresholds set to `value` inside
+    the block (so a small circuit takes the device paths), restored after."""
+
+    def __init__(self, value):
+        self.value = value
+
+    def __enter__(self):
+        from zksnake_tpu_torch.backend import config
+
+        self.saved = config.PLONK_DEVICE_THRESHOLD, config.MSM_DEVICE_THRESHOLD
+        config.PLONK_DEVICE_THRESHOLD = config.MSM_DEVICE_THRESHOLD = self.value
+
+    def __exit__(self, *exc):
+        from zksnake_tpu_torch.backend import config
+
+        config.PLONK_DEVICE_THRESHOLD, config.MSM_DEVICE_THRESHOLD = self.saved
+
+
+def _plonk_chain(n_power, curve, inp_value):
+    """The mult chain (bench.py::_measure_plonk) as Plonkish gates:
+    out = inp^n_power, public out; Plonkish.length is n_power."""
+    from zksnake_tpu_torch import ConstraintSystem, Var
+    from zksnake_tpu_torch.arithmetization import Plonkish
+
+    inp, out = Var("inp"), Var("out")
+    v = [Var(f"v{i}") for i in range(n_power - 1)]
+    cs = ConstraintSystem(["inp"], ["out"], _scalar_field(curve))
+    cs.add_constraint(v[0] == inp * inp)
+    for i in range(1, n_power - 1):
+        cs.add_constraint(v[i] == v[i - 1] * inp)
+    cs.add_constraint(out == v[n_power - 2])
+    cs.set_public(out)
+    plonkish = Plonkish(cs, curve)
+    plonkish.compile()
+    pub, priv = plonkish.generate_witness(plonkish.solve({"inp": inp_value}))
+    return plonkish, pub, priv
+
+
+def phase_plonk_fixtures(ctx):
     from zksnake_tpu_torch.backend import kernels
-    from zksnake_tpu_torch.groth16 import protocol
+    from zksnake_tpu_torch.plonk import Plonk, protocol
+
+    for curve in ("BN254", "BLS12_381"):
+        saved = protocol.get_random_int
+        protocol.get_random_int = _det_random_int(f"plonk-{curve}")
+        try:
+            with thresholds(1):
+                plonkish, pub, priv = _plonk_chain(16, curve, 3)
+                plonk = Plonk(plonkish, curve, device=ctx.device)
+                plonk.setup()
+                kernels.reset_launches()
+                proof = plonk.prove(pub, priv)
+                ctx.sync()
+                launches = dict(kernels.LAUNCHES)
+                ok = plonk.verify(proof, pub)
+        finally:
+            protocol.get_random_int = saved
+        if proof.to_bytes() != _fixture_bytes("plonk", curve) or not ok:
+            raise AssertionError(f"{curve} PlonK fixture proof bytes differ")
+        _require_launches(ctx, f"PlonK fixture {curve}", launches, ("mont_mul", "bucket_accumulate"))
+        log(f"[9] fixture proof {curve}: byte-identical to tests/fixtures/plonk_"
+            f"{curve.lower()}.hex (fused prover on the device, launches {launches}), verifies")
+
+
+def _prove_counted(ctx, prove, protocol, seed=None):
+    """One prove() with every launch counter set to 0 just before it and
+    read just after; `seed` fixes the protocol module's randomness (Groth16's
+    r, s; PlonK's 11 blinds). Returns (proof, seconds, launches)."""
+    from zksnake_tpu_torch.backend import kernels
 
     saved = protocol.get_random_int
     if seed is not None:
@@ -436,7 +596,7 @@ def _prove_counted(ctx, g16, pub, priv, seed=None):
     try:
         kernels.reset_launches()
         t0 = time.perf_counter()
-        proof = g16.prove(pub, priv)
+        proof = prove()
         ctx.sync()
         dt = time.perf_counter() - t0
         launches = dict(kernels.LAUNCHES)
@@ -445,15 +605,19 @@ def _prove_counted(ctx, g16, pub, priv, seed=None):
     return proof, dt, launches
 
 
-def _require_launches(ctx, path, launches, names):
-    if ctx.device.type == "cuda" and min(launches[k] for k in names) == 0:
-        raise AssertionError(f"{path}: a kernel of the path was not launched: {launches}")
+def _require_launches(ctx, path, launches, names, absent=()):
+    """Every kernel of `names` was launched on the path and none of
+    `absent` (on the card; the CPU counts nothing)."""
+    if ctx.device.type != "cuda":
+        return
+    if min(launches[k] for k in names) == 0 or any(launches[k] for k in absent):
+        raise AssertionError(f"{path}: expected {names} launched and {absent} not: {launches}")
 
 
 def _groth16_path(ctx, curve, tag):
     """Front end, setup and a cold prove of the mult chain at 2^PROVE_LOGN."""
     from zksnake_tpu_torch import metrics
-    from zksnake_tpu_torch.groth16 import Groth16
+    from zksnake_tpu_torch.groth16 import Groth16, protocol
 
     logn = PROVE_LOGN if not ctx.rehearse else 6
     t0 = time.perf_counter()
@@ -467,7 +631,7 @@ def _groth16_path(ctx, curve, tag):
     ctx.sync()
     t_setup = time.perf_counter() - t0
     setup_phases = metrics.report()
-    _, t_cold, _ = _prove_counted(ctx, g16, pub, priv)
+    _, t_cold, _ = _prove_counted(ctx, lambda: g16.prove(pub, priv), protocol)
     row = {"curve": curve, "constraints": 1 << logn, "frontend_s": t_front,
            "setup_s": t_setup, "prove_cold_s": t_cold, "setup_phases": setup_phases}
     log(f"[{tag}] Groth16 {curve} 2^{logn} constraints: frontend {t_front:.3f} s, "
@@ -476,12 +640,18 @@ def _groth16_path(ctx, curve, tag):
     return g16, pub, priv, row
 
 
+K_DEFAULT = ("mont_mul", "bucket_accumulate")  # launched without the flag
+K_FLAG = ("mont_mul", "mont_mul_mma", "bucket_accumulate_mma")  # under the flag
+K_FLAG_ONLY = ("mont_mul_mma", "bucket_accumulate_mma")
+
+
 def phase_bn254(ctx):
     from zksnake_tpu_torch import metrics
+    from zksnake_tpu_torch.groth16 import protocol
 
-    g16, pub, priv, row = _groth16_path(ctx, "BN254", 7)
+    g16, pub, priv, row = _groth16_path(ctx, "BN254", 10)
     metrics.reset()
-    proof, t_warm, launches = _prove_counted(ctx, g16, pub, priv)
+    proof, t_warm, launches = _prove_counted(ctx, lambda: g16.prove(pub, priv), protocol)
     prove_phases = metrics.report()
     metrics.enable(False)
     t0 = time.perf_counter()
@@ -489,29 +659,29 @@ def phase_bn254(ctx):
     t_verify = time.perf_counter() - t0
     if not ok:
         raise AssertionError("the BN254 main-path proof does not verify")
-    _require_launches(ctx, "BN254 warm prove", launches, ("mont_mul", "bucket_accumulate"))
-    if launches["mont_mul_mma"] != 0:
-        raise AssertionError(f"K3 launched without ZKSNAKE_MXU_MONTMUL: {launches}")
+    _require_launches(ctx, "Groth16 BN254 warm prove", launches, K_DEFAULT, K_FLAG_ONLY)
     ctx.paths["bn254_prove_warm"] = launches
     row.update(prove_warm_s=t_warm, verify_s=t_verify, launches_warm=launches,
                prove_phases=prove_phases)
     ctx.detail["prove_bn254"] = row
-    log(f"[7] warm prove {t_warm:.3f} s, verify {t_verify:.3f} s: True; "
+    log(f"[10] warm prove {t_warm:.3f} s, verify {t_verify:.3f} s: True; "
         f"warm-prove launches {launches}")
-    log("[7] prove phases " + json.dumps({k: v["seconds"] for k, v in prove_phases.items()}))
+    log("[10] prove phases " + json.dumps({k: v["seconds"] for k, v in prove_phases.items()}))
 
 
 def phase_bls12_381(ctx):
     from zksnake_tpu_torch import metrics
+    from zksnake_tpu_torch.groth16 import protocol
 
-    g16, pub, priv, row = _groth16_path(ctx, "BLS12_381", 8)
+    g16, pub, priv, row = _groth16_path(ctx, "BLS12_381", 11)
     seed = "chip-smoke-bls12-381-r-s"
+    prove = lambda: g16.prove(pub, priv)  # noqa: E731
     metrics.reset()
-    proof, t_warm, launches = _prove_counted(ctx, g16, pub, priv, seed)
+    proof, t_warm, launches = _prove_counted(ctx, prove, protocol, seed)
     phases_off = metrics.report()
     metrics.reset()
     with flag_env("1"):
-        proof_mma, t_mma, launches_mma = _prove_counted(ctx, g16, pub, priv, seed)
+        proof_mma, t_mma, launches_mma = _prove_counted(ctx, prove, protocol, seed)
     phases_on = metrics.report()
     metrics.enable(False)
     if proof.to_bytes() != proof_mma.to_bytes():
@@ -522,26 +692,88 @@ def phase_bls12_381(ctx):
     ok_mma = g16.verify(proof_mma, pub)
     if not (ok and ok_mma):
         raise AssertionError("the BLS12-381 main-path proofs do not verify")
-    _require_launches(ctx, "BLS12-381 warm prove", launches, ("mont_mul", "bucket_accumulate"))
-    _require_launches(ctx, "BLS12-381 warm prove, ZKSNAKE_MXU_MONTMUL=1", launches_mma,
-                      ("mont_mul", "bucket_accumulate", "mont_mul_mma"))
-    if launches["mont_mul_mma"] != 0:
-        raise AssertionError(f"K3 launched without ZKSNAKE_MXU_MONTMUL: {launches}")
+    _require_launches(ctx, "Groth16 BLS12-381 warm prove", launches, K_DEFAULT, K_FLAG_ONLY)
+    _require_launches(ctx, "Groth16 BLS12-381 warm prove, ZKSNAKE_MXU_MONTMUL=1", launches_mma,
+                      K_FLAG, ("bucket_accumulate",))
     ctx.paths["bls12_381_prove_warm"] = launches
     ctx.paths["bls12_381_prove_warm_mxu"] = launches_mma
     row.update(prove_warm_s=t_warm, prove_warm_mxu_s=t_mma, verify_s=t_verify,
                launches_warm=launches, launches_warm_mxu=launches_mma,
                prove_phases=phases_off, prove_phases_mxu=phases_on)
     ctx.detail["prove_bls12_381"] = row
-    log(f"[8] warm prove {t_warm:.3f} s (launches {launches}); with ZKSNAKE_MXU_MONTMUL=1 "
+    log(f"[11] warm prove {t_warm:.3f} s (launches {launches}); with ZKSNAKE_MXU_MONTMUL=1 "
         f"{t_mma:.3f} s (launches {launches_mma}); proofs byte-equal; verify "
         f"{t_verify:.3f} s: True, True")
-    log("[8] prove phases " + json.dumps({k: v["seconds"] for k, v in phases_off.items()}))
-    log("[8] prove phases, flag " + json.dumps({k: v["seconds"] for k, v in phases_on.items()}))
+    log("[11] prove phases " + json.dumps({k: v["seconds"] for k, v in phases_off.items()}))
+    log("[11] prove phases, flag " + json.dumps({k: v["seconds"] for k, v in phases_on.items()}))
 
 
-PHASES = [phase_build, phase_k1, phase_k3, phase_k2, phase_msm, phase_msm_mma,
-          phase_fixtures, phase_bn254, phase_bls12_381]
+def phase_plonk(ctx):
+    import contextlib
+
+    from zksnake_tpu_torch import metrics
+    from zksnake_tpu_torch.plonk import Plonk, protocol
+
+    logn = PLONK_LOGN if not ctx.rehearse else 5
+    # at toy sizes the thresholds are lowered so the same device paths run
+    lowered = thresholds(1) if ctx.rehearse else contextlib.nullcontext()
+    with lowered:
+        t0 = time.perf_counter()
+        plonkish, pub, priv = _plonk_chain(1 << logn, "BN254", 2)
+        t_front = time.perf_counter() - t0
+        if plonkish.length != 1 << logn:
+            raise AssertionError(f"PlonK mult chain: {plonkish.length} gates, not 2^{logn}")
+        plonk = Plonk(plonkish, "BN254", device=ctx.device)
+        metrics.enable()
+        metrics.reset()
+        t0 = time.perf_counter()
+        plonk.setup()
+        ctx.sync()
+        t_setup = time.perf_counter() - t0
+        setup_phases = metrics.report()
+        prove = lambda: plonk.prove(pub, priv)  # noqa: E731
+        seed = "chip-smoke-plonk-blinds"
+        _, t_cold, _ = _prove_counted(ctx, prove, protocol, seed)
+        metrics.reset()
+        proof, t_warm, launches = _prove_counted(ctx, prove, protocol, seed)
+        phases_off = metrics.report()
+        metrics.reset()
+        with flag_env("1"):
+            proof_mma, t_mma, launches_mma = _prove_counted(ctx, prove, protocol, seed)
+        phases_on = metrics.report()
+        metrics.enable(False)
+        t0 = time.perf_counter()
+        ok = plonk.verify(proof, pub)
+        t_verify = time.perf_counter() - t0
+        ok_mma = plonk.verify(proof_mma, pub)
+    if proof.to_bytes() != proof_mma.to_bytes():
+        raise AssertionError("PlonK: the proof differs with ZKSNAKE_MXU_MONTMUL=1")
+    if not (ok and ok_mma):
+        raise AssertionError("the PlonK main-path proofs do not verify")
+    _require_launches(ctx, "PlonK BN254 warm prove", launches, K_DEFAULT, K_FLAG_ONLY)
+    _require_launches(ctx, "PlonK BN254 warm prove, ZKSNAKE_MXU_MONTMUL=1", launches_mma,
+                      K_FLAG, ("bucket_accumulate",))
+    ctx.paths["plonk_prove_warm"] = launches
+    ctx.paths["plonk_prove_warm_mxu"] = launches_mma
+    secs = lambda ph: {k: v["seconds"] for k, v in ph.items()}  # noqa: E731
+    ctx.detail["plonk_bn254"] = {
+        "gates": 1 << logn, "frontend_s": t_front, "setup_s": t_setup, "prove_cold_s": t_cold,
+        "prove_warm_s": t_warm, "prove_warm_mxu_s": t_mma, "verify_s": t_verify,
+        "launches_warm": launches, "launches_warm_mxu": launches_mma,
+        "setup_phases": setup_phases, "prove_phases": phases_off, "prove_phases_mxu": phases_on,
+    }
+    log(f"[12] PlonK BN254 2^{logn} gates: frontend {t_front:.3f} s, setup {t_setup:.3f} s, "
+        f"prove cold {t_cold:.3f} s, warm {t_warm:.3f} s (launches {launches}); with "
+        f"ZKSNAKE_MXU_MONTMUL=1 {t_mma:.3f} s (launches {launches_mma}); proofs byte-equal; "
+        f"verify {t_verify:.3f} s: True, True")
+    log("[12] setup phases " + json.dumps(secs(setup_phases)))
+    log("[12] prove phases " + json.dumps(secs(phases_off)))
+    log("[12] prove phases, flag " + json.dumps(secs(phases_on)))
+
+
+PHASES = [phase_build, phase_k1, phase_k3, phase_k2, phase_k2m, phase_msm, phase_msm_mma,
+          phase_msm_g2, phase_fixtures, phase_plonk_fixtures, phase_bn254, phase_bls12_381,
+          phase_plonk]
 
 # kernel -> (source, the TPU kernel it replaces, the main-path run its
 # launch count is read from)
@@ -552,6 +784,8 @@ SOURCES = {
                           "zksnake_tpu/backend/pallas_field.py:244", "bls12_381_prove_warm"),
     "mont_mul_mma": ("zksnake_tpu_torch/csrc/montmul_mma.cu",
                      "zksnake_tpu/backend/pallas_field.py:24", "bls12_381_prove_warm_mxu"),
+    "bucket_accumulate_mma": ("zksnake_tpu_torch/csrc/bucket_mma.cu",
+                              "zksnake_tpu/backend/pallas_field.py:274", "plonk_prove_warm_mxu"),
 }
 
 
@@ -576,8 +810,12 @@ def main():
         return 2
     ctx = Ctx("cpu" if args.rehearse else "cuda", args.rehearse)
     phases = [int(p) for p in args.phases.split(",")]
+    phase_s = {}
     for i in phases:
+        t0 = time.perf_counter()
         PHASES[i](ctx)
+        phase_s[f"{i}.{PHASES[i].__name__}"] = time.perf_counter() - t0
+    ctx.detail["phase_s"] = phase_s
     _no_jax_modules()
     log("details " + json.dumps({**ctx.detail, "paths": ctx.paths}, default=str))
     if args.rehearse:

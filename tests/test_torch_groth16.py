@@ -11,8 +11,9 @@ tests/fixtures/groth16_{bn254,bls12_381}.hex; its QAP equals
 zksnake_tpu.groth16.qap.QAP.evaluate_witness; a prover built from the JAX
 package's device arrays (backend/state.py) gives the same proof; the proof
 is the same with ZKSNAKE_MXU_MONTMUL set (K3's plain version); and every
-module of the port imports, and both fixture proofs come out, in a process
-where jax and zksnake_tpu cannot be imported.
+module of the port imports, and both fixture proofs come out (and the two
+PlonK fixture proofs), in a process where jax and zksnake_tpu cannot be
+imported.
 """
 
 import json
@@ -90,11 +91,13 @@ modules = [m.name for m in pkgutil.walk_packages(zksnake_tpu_torch.__path__, "zk
 for name in modules:
     importlib.import_module(name)
 from zksnake_tpu_torch import ConstraintSystem, R1CS, Var
+from zksnake_tpu_torch.arithmetization import Plonkish
 from zksnake_tpu_torch.groth16 import Groth16, protocol
+from zksnake_tpu_torch.plonk import Plonk, protocol as plonk_protocol
 out = {"jax": sys.modules["jax"], "zksnake_tpu": sys.modules["zksnake_tpu"], "modules": modules}
-for curve, field in FIELDS.items():
-    rng = random.Random(f"g16-{curve}")
-    protocol.get_random_int = lambda n_max: 1 + rng.randrange(n_max)
+
+
+def power_cs(field):
     inp, o = Var("inp"), Var("out")
     v = [Var(f"v{i}") for i in range(15)]
     cs = ConstraintSystem(["inp"], ["out"], field)
@@ -103,6 +106,13 @@ for curve, field in FIELDS.items():
         cs.add_constraint(v[i] == v[i - 1] * inp)
     cs.add_constraint(o == v[14])
     cs.set_public(o)
+    return cs
+
+
+for curve, field in FIELDS.items():
+    rng = random.Random(f"g16-{curve}")
+    protocol.get_random_int = lambda n_max: 1 + rng.randrange(n_max)
+    cs = power_cs(field)
     r1cs = R1CS(cs, curve)
     r1cs.compile()
     pub, priv = r1cs.generate_witness(cs.solve({"inp": 3}))
@@ -113,6 +123,16 @@ for curve, field in FIELDS.items():
         "proof": proof.to_bytes().hex(), "pk": g16.proving_key.to_bytes().hex(),
         "vk": g16.verifying_key.to_bytes().hex(), "verified": g16.verify(proof, pub),
     }
+    rng = random.Random(f"plonk-{curve}")
+    plonk_protocol.get_random_int = lambda n_max: 1 + rng.randrange(n_max)
+    cs = power_cs(field)
+    plonkish = Plonkish(cs, curve)
+    plonkish.compile()
+    pub, priv = plonkish.generate_witness(plonkish.solve({"inp": 3}))
+    plonk = Plonk(plonkish, curve, device="cpu")
+    plonk.setup()
+    proof = plonk.prove(pub, priv)
+    out["plonk_" + curve] = {"proof": proof.to_bytes().hex(), "verified": plonk.verify(proof, pub)}
 print(json.dumps(out))
 """
 
@@ -147,8 +167,8 @@ def run(request, child):
             "priv": priv, "child": out}
 
 
-def fixture_bytes(curve):
-    return bytes.fromhex((REPO / "tests" / "fixtures" / f"groth16_{curve.lower()}.hex")
+def fixture_bytes(curve, proto="groth16"):
+    return bytes.fromhex((REPO / "tests" / "fixtures" / f"{proto}_{curve.lower()}.hex")
                          .read_text().strip())
 
 
@@ -295,4 +315,16 @@ def test_port_runs_with_jax_unimportable(child):
              for p in port.rglob("*.py")}
     files = {f[: -len(".__init__")] if f.endswith(".__init__") else f for f in files}
     assert files - {"zksnake_tpu_torch"} <= set(child["modules"])
+    assert {"zksnake_tpu_torch.plonk.protocol", "zksnake_tpu_torch.transcript",
+            "zksnake_tpu_torch.arithmetization.plonkish_compiler",
+            "zksnake_tpu_torch.backend.plonk_device"} <= set(child["modules"])
     assert all(child[c]["verified"] for c in CURVES)
+
+
+@pytest.mark.parametrize("curve", CURVES)
+def test_plonk_fixtures_with_jax_unimportable(child, curve):
+    """The same child proved tests/fixtures/plonk_*.hex with the port's
+    PlonK, jax and zksnake_tpu blocked."""
+    out = child["plonk_" + curve]
+    assert bytes.fromhex(out["proof"]) == fixture_bytes(curve, "plonk")
+    assert out["verified"]

@@ -6,7 +6,7 @@ the card:
 
     python -m pytest tests/test_torch_kernels_cuda.py -q
 
-K1, K2 (16- and 24-limb builds) and K3 must match their plain versions limb
+K1, K2 and K2m (16- and 24-limb builds) and K3 must match their plain versions limb
 for limb (integer field arithmetic has no tolerance), each wrapper must
 count one launch per call, refuse what its kernel does not take, and the
 MSM and the fixture proofs must come out the same on the card as on the
@@ -98,6 +98,32 @@ def test_bucket_kernel_matches_plain(card, curve, group):
     assert torch.equal(got, kernels.bucket_accumulate_plain(gs, pts, starts, lens))
 
 
+@pytest.mark.parametrize("curve", ["BN254", "BLS12_381"])
+@pytest.mark.parametrize("group", [1, 2])
+def test_bucket_mma_kernel_matches_plain_and_k2(card, curve, group):
+    """K2m on ragged runs (empty buckets in the spread top window, and a
+    last block past the final bucket: c = 6 gives 43 x 32 = 1376 lanes, not
+    a multiple of the 64-lane block) against its plain version and against
+    K2, limb for limb."""
+    cm = get_curve_module(curve, card)
+    gs = get_group_spec(cm._curve, group)
+    gen = cm.g1() if group == 1 else cm.g2()
+    base = gs.points_to_device([gen * (i + 1) for i in range(32)], card)
+    P = gs.map(lambda t: t.repeat(1, 8), base)  # 256 points
+    rng = random.Random(40 + group)
+    r = cm._curve.r
+    s = tmsm.scalars_to_device([rng.randrange(r) for _ in range(256)], r, card)
+    pts, starts, lens, _, _ = tmsm.sort_by_digit(gs, P, s, 6)
+    assert int((lens == 0).sum()) > 0
+    before = dict(kernels.LAUNCHES)
+    got = kernels.bucket_accumulate_mma(gs, pts, starts, lens)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["bucket_accumulate_mma"] == before["bucket_accumulate_mma"] + 1
+    assert kernels.LAUNCHES["bucket_accumulate"] == before["bucket_accumulate"]
+    assert torch.equal(got, kernels.bucket_accumulate_mma_plain(gs, pts, starts, lens))
+    assert torch.equal(got, kernels.bucket_accumulate(gs, pts, starts, lens))
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(card):
     fs = FieldSpec.get(BN254_MODULUS)
     a = random_elems(fs, 64, 3).to(card)
@@ -108,6 +134,16 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
             fn(fs, a[:, ::2], a[:, ::2])
         with pytest.raises(ValueError):
             fn(fs, a, a.cpu())
+    gs = get_group_spec(get_curve_module("BN254", card)._curve, 1)
+    pts = torch.zeros((2, 16, 1, 8), dtype=torch.int32, device=card)
+    runs = torch.zeros((1, 4), dtype=torch.int32, device=card)
+    for fn in (kernels.bucket_accumulate, kernels.bucket_accumulate_mma):
+        with pytest.raises(ValueError):
+            fn(gs, pts[:1], runs, runs)  # G1 takes X and Y planes
+        with pytest.raises(TypeError):
+            fn(gs, pts.long(), runs, runs)
+        with pytest.raises(ValueError):
+            fn(gs, pts, runs, runs.cpu())
 
 
 @pytest.mark.parametrize("group", [1, 2])

@@ -120,6 +120,49 @@ def test_bucket_plain_matches_jax_round_loop_g2():
         np.testing.assert_array_equal(np.asarray(a).astype(np.int64), b)
 
 
+@pytest.mark.parametrize("curve", ["BN254", "BLS12_381"])
+@pytest.mark.parametrize("group", [1, 2])
+def test_bucket_mma_plain_matches_k2_plain(curve, group):
+    """K2m's plain version (every product through K3's plain version)
+    equals K2's limb for limb on seeded ragged runs over two windows, with
+    empty buckets."""
+    module = get_curve_module(curve, "cpu")
+    gs_t = torch_group(module._curve, group)
+    runs = [sorted_runs(20 + w + group, B=8, R=4) for w in range(2)]
+    n = max(int(lens.sum()) for _, lens in runs)
+    points = chain(gen_of(module, group), n, 7 + group)
+    X, Y, _ = gs_t.points_to_device(points, "cpu")
+    leaves = ([X] if group == 1 else list(X)) + ([Y] if group == 1 else list(Y))
+    # window 1 reads the points in reverse order
+    pts = torch.stack([torch.stack([t, t.flip(1)], dim=1) for t in leaves]).contiguous()
+    starts = torch.from_numpy(np.stack([s for s, _ in runs]))
+    lens = torch.from_numpy(np.stack([l for _, l in runs]))
+    assert int((lens == 0).sum()) >= 2
+    want = kernels.bucket_accumulate_plain(gs_t, pts, starts, lens)
+    got = kernels.bucket_accumulate_mma(gs_t, pts, starts, lens)  # the CPU route
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("group", [1, 2])
+def test_msm_under_mxu_flag_matches_host_oracle(group, monkeypatch):
+    """ZKSNAKE_MXU_MONTMUL=1 (lane threshold lowered): bucket sums through
+    K2m's route, flat products through K3's; same MSM."""
+    from zksnake_tpu_torch.backend import field as torch_field
+
+    monkeypatch.setenv("ZKSNAKE_MXU_MONTMUL", "1")
+    monkeypatch.setattr(torch_field, "MXU_MIN_LANES", 16)
+    calls = []
+    orig = kernels.bucket_accumulate_mma
+    monkeypatch.setattr(kernels, "bucket_accumulate_mma",
+                        lambda *a: calls.append(1) or orig(*a))
+    monkeypatch.setattr(kernels, "bucket_accumulate", None)  # K2 must not run
+    points, scalars = msm_case(group, 64, 30 + group)
+    got = tmsm.msm_device(CURVE, group, points, scalars, type(points[0]), "cpu")
+    jax_points, _ = msm_case(group, 64, 30 + group, ec_bn254)
+    assert got.to_bytes() == _host_msm(ec_bn254, jax_points, scalars).to_bytes()
+    assert calls == [1]
+
+
 def msm_case(group, n, seed, module=PORT):
     """Points of `module` and scalars of one MSM case."""
     points = chain(gen_of(module, group), n, 11 + seed, identities={3, n - 1})

@@ -533,3 +533,8 @@ class ConstraintSystem:
         from .r1cs_compiler import compile_r1cs
 
         return compile_r1cs(self)
+
+    def compile_to_plonkish(self):
+        from .plonkish_compiler import compile_plonkish
+
+        return compile_plonkish(self)

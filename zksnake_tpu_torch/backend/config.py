@@ -18,9 +18,10 @@ MLE_DEVICE_THRESHOLD = int(os.environ.get("ZKSNAKE_MLE_THRESHOLD", "4096"))
 
 
 def mxu_montmul():
-    """ZKSNAKE_MXU_MONTMUL=1 routes large flat Montgomery products to K3,
-    the tensor-core reduction (read at call time, as
-    zksnake_tpu/backend/field.py::_mxu_montmul does); K1 is the default."""
+    """ZKSNAKE_MXU_MONTMUL=1 routes large flat Montgomery products to K3
+    and bucket accumulation to K2m, the tensor-core reductions (read at
+    call time, as zksnake_tpu/backend/field.py::_mxu_montmul does); K1 and
+    K2 are the default."""
     return os.environ.get("ZKSNAKE_MXU_MONTMUL", "0") == "1"
 
 

@@ -164,8 +164,9 @@ class DevFq2:
 
 
 class GroupSpec:
-    """One curve group's device arithmetic. `plain` selects the plain
-    mont_mul on every device (the reference a kernel is checked against)."""
+    """One curve group's device arithmetic. `plain` selects a plain
+    mont_mul on every device (the reference a kernel is checked against):
+    True K1's, "mma" K3's (field.mont_mul)."""
 
     def __init__(self, curve, group, plain=False):
         self.curve = curve
@@ -181,8 +182,8 @@ class GroupSpec:
             self._b3_val = (3 * b2[0] % curve.p, 3 * b2[1] % curve.p)
         self._b3_words = None
 
-    def plain(self):
-        return get_group_spec(self.curve, self.group, plain=True)
+    def plain(self, mode=True):
+        return get_group_spec(self.curve, self.group, plain=mode)
 
     def b3(self, device):
         return self.F.const(self._b3_val, device)

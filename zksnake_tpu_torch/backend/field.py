@@ -258,14 +258,17 @@ def mont_mul(fs, a, b, plain=False):
     """Montgomery product (a * b * R^-1) mod p of broadcastable (nl, ...)
     limb tensors. Operands are expanded to one shape first (as
     mont_mul_pallas does) and run as one flat (nl, N) launch of K1 on CUDA.
-    plain=True forces the plain version (the reference the kernel is
-    checked against). Under ZKSNAKE_MXU_MONTMUL=1 a launch of at least
-    MXU_MIN_LANES lanes goes to K3 instead."""
+    plain=True forces K1's plain version and plain="mma" K3's (the
+    references the kernels are checked against). Under
+    ZKSNAKE_MXU_MONTMUL=1 a launch of at least MXU_MIN_LANES lanes goes to
+    K3 instead."""
     nl = fs.nl
     shape = _bshape(a, b)
     a2 = _expand(a, nl, shape).reshape(nl, -1).contiguous()
     b2 = _expand(b, nl, shape).reshape(nl, -1).contiguous()
-    if plain:
+    if plain == "mma":
+        fn = kernels.mont_mul_mma_plain
+    elif plain:
         fn = kernels.mont_mul_plain
     elif a2.shape[1] >= MXU_MIN_LANES and config.mxu_montmul():
         fn = kernels.mont_mul_mma
@@ -340,6 +343,18 @@ def prefix_prod(fs, x):
     sh = 1
     while sh < n:
         x = torch.cat([x[..., :sh], mont_mul(fs, x[..., sh:], x[..., :-sh])], dim=-1)
+        sh <<= 1
+    return x
+
+
+def prefix_sum_mod(fs, x):
+    """Inclusive prefix sum (mod p) along the last axis of a (nl, ..., n)
+    limb tensor, the additive twin of prefix_prod (Hillis-Steele scan:
+    ceil(log2 n) mod_adds)."""
+    n = x.shape[-1]
+    sh = 1
+    while sh < n:
+        x = torch.cat([x[..., :sh], mod_add(fs, x[..., sh:], x[..., :-sh])], dim=-1)
         sh <<= 1
     return x
 

@@ -6,7 +6,9 @@ zksnake_tpu/backend/pallas_field.py::_make_kernel; K2 `bucket_accumulate`
 (csrc/bucket.cu) replaces pallas_field.py::bucket_accumulate_pallas; K3
 `mont_mul_mma` (csrc/montmul_mma.cu) replaces pallas_field.py::_make_kernel_mxu
 (body mxu_field.py::mont_mul_mxu_cols), the Montgomery product whose two
-reduction products run on the matrix unit.
+reduction products run on the matrix unit; K2m `bucket_accumulate_mma`
+(csrc/bucket_mma.cu) replaces the same bucket_accumulate_pallas under
+ZKSNAKE_MXU_MONTMUL=1, where every product of its body is K3's.
 
 Each wrapper takes its plain version for a tensor on the CPU and launches
 its kernel for a CUDA tensor; any other device, a failed build or a launch
@@ -38,16 +40,20 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-# library -> (source, extra nvcc flags); K2 is built once per limb count
+# library -> (source, extra nvcc flags); K2 and K2m are built once per limb
+# count
 _SOURCES = {
     "montmul": ("montmul.cu", []),
     "montmul_mma": ("montmul_mma.cu", []),
     "bucket16": ("bucket.cu", ["-DZK_NL=16"]),
     "bucket24": ("bucket.cu", ["-DZK_NL=24"]),
+    "bucket_mma16": ("bucket_mma.cu", ["-DZK_NL=16"]),
+    "bucket_mma24": ("bucket_mma.cu", ["-DZK_NL=24"]),
 }
 
 # launches of each kernel since the last reset_launches()
-LAUNCHES = {"mont_mul": 0, "bucket_accumulate": 0, "mont_mul_mma": 0}
+LAUNCHES = {"mont_mul": 0, "bucket_accumulate": 0, "mont_mul_mma": 0,
+            "bucket_accumulate_mma": 0}
 
 _LIBS = {}
 _LOCK = threading.Lock()
@@ -131,6 +137,11 @@ def _lib(name):
             elif name == "montmul_mma":
                 lib.zk_mont_mul_mma.argtypes = [vp, vp, vp, ll, i, vp, vp, vp]
                 lib.zk_mont_mul_mma.restype = i
+            elif name.startswith("bucket_mma"):
+                lib.zk_bucket_accumulate_mma.argtypes = [
+                    vp, vp, vp, vp, i, i, i, i, ll, vp, u32, vp, vp, vp, vp
+                ]
+                lib.zk_bucket_accumulate_mma.restype = i
             else:
                 lib.zk_bucket_accumulate.argtypes = [
                     vp, vp, vp, vp, i, i, i, i, ll, vp, u32, vp, vp, vp
@@ -344,16 +355,18 @@ def mont_mul_mma(fs, a, b):
 # -------------------------------------------------------------------- K2 --
 
 
-def bucket_accumulate_plain(gs, pts, starts, lens):
+def bucket_accumulate_plain(gs, pts, starts, lens, mode=True):
     """Plain version of K2 on any device: the per-round mixed add of
     zksnake_tpu/backend/msm.py:370-390 on torch. Round k adds the rank-k
     point of every run into its bucket, in rank order like the kernel; the
     round runs only over the runs that still have a rank-k point, which is
-    the JAX loop's mask applied by gathering the live lanes.
+    the JAX loop's mask applied by gathering the live lanes. `mode` picks
+    the field product (GroupSpec.plain): True K1's plain version, "mma"
+    K3's.
 
     pts: (L, nl, W, n) sorted planes (K2's input layout); starts, lens:
     (W, B2) int32. Returns the (3 or 6, nl, W, B2) projective bucket sums."""
-    gs = gs.plain()
+    gs = gs.plain(mode)
     L, nl, Wn, n = pts.shape
     B2 = starts.shape[1]
     acc = torch.stack(gs.leaves(gs.identity((Wn * B2,), pts.device)))  # (3|6, nl, W*B2)
@@ -370,6 +383,49 @@ def bucket_accumulate_plain(gs, pts, starts, lens):
     return acc.reshape(-1, nl, Wn, B2)
 
 
+def bucket_accumulate_mma_plain(gs, pts, starts, lens):
+    """Plain version of K2m on any device: K2's plain version with every
+    field product through mont_mul_mma_plain (K3's plain version)."""
+    return bucket_accumulate_plain(gs, pts, starts, lens, mode="mma")
+
+
+def _bucket_launch(gs, pts, starts, lens, mma):
+    """Launch K2 (mma=False) or K2m on the CUDA tensors' device."""
+    dev = pts.device
+    fs = gs.fs
+    nl = fs.nl
+    L = 2 * gs.group
+    name = "bucket_accumulate_mma" if mma else "bucket_accumulate"
+    if pts.ndim != 4 or pts.shape[0] != L or pts.shape[1] != nl:
+        raise ValueError(f"{name}: pts shape {tuple(pts.shape)}")
+    _, _, Wn, n = pts.shape
+    _require(pts, "pts")
+    _require(starts, "starts")
+    _require(lens, "lens", starts.shape)
+    if starts.ndim != 2 or starts.shape[0] != Wn:
+        raise ValueError(f"{name}: starts shape {tuple(starts.shape)}")
+    B2 = starts.shape[1]
+    out = torch.empty((3 * gs.group, nl, Wn, B2), dtype=torch.int32, device=dev)
+    args = [
+        pts.data_ptr(), starts.data_ptr(), lens.data_ptr(), out.data_ptr(),
+        nl, gs.group, Wn, B2, n,
+        ctypes.addressof(fs.words("p")), fs.pinv32,
+        ctypes.addressof(fs.words("one")), ctypes.addressof(gs.b3_words()),
+    ]
+    if mma:
+        lib = _lib(f"bucket_mma{nl}")
+        fn = lib.zk_bucket_accumulate_mma
+        args.append(fs.mma_tiles(dev).data_ptr())
+    else:
+        lib = _lib(f"bucket{nl}")
+        fn = lib.zk_bucket_accumulate
+    with torch.cuda.device(dev):
+        rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    LAUNCHES[name] += 1
+    _check(rc, name)
+    return out
+
+
 def bucket_accumulate(gs, pts, starts, lens):
     """K2 on CUDA, its plain version on the CPU (layouts as above)."""
     dev = _device_of(pts, starts, lens)
@@ -377,29 +433,14 @@ def bucket_accumulate(gs, pts, starts, lens):
         return bucket_accumulate_plain(gs, pts, starts, lens)
     if dev.type != "cuda":
         raise ValueError(f"bucket_accumulate: unsupported device {dev}")
-    fs = gs.fs
-    nl = fs.nl
-    L = 2 * gs.group
-    if pts.ndim != 4 or pts.shape[0] != L or pts.shape[1] != nl:
-        raise ValueError(f"bucket_accumulate: pts shape {tuple(pts.shape)}")
-    _, _, Wn, n = pts.shape
-    _require(pts, "pts")
-    _require(starts, "starts")
-    _require(lens, "lens", starts.shape)
-    if starts.ndim != 2 or starts.shape[0] != Wn:
-        raise ValueError(f"bucket_accumulate: starts shape {tuple(starts.shape)}")
-    B2 = starts.shape[1]
-    lib = _lib(f"bucket{nl}")
-    out = torch.empty((3 * gs.group, nl, Wn, B2), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.zk_bucket_accumulate(
-            pts.data_ptr(), starts.data_ptr(), lens.data_ptr(), out.data_ptr(),
-            nl, gs.group, Wn, B2, n,
-            ctypes.addressof(fs.words("p")), fs.pinv32,
-            ctypes.addressof(fs.words("one")), ctypes.addressof(gs.b3_words()),
-            stream,
-        )
-    LAUNCHES["bucket_accumulate"] += 1
-    _check(rc, "bucket_accumulate")
-    return out
+    return _bucket_launch(gs, pts, starts, lens, mma=False)
+
+
+def bucket_accumulate_mma(gs, pts, starts, lens):
+    """K2m on CUDA, its plain version on the CPU (K2's layouts)."""
+    dev = _device_of(pts, starts, lens)
+    if dev.type == "cpu":
+        return bucket_accumulate_mma_plain(gs, pts, starts, lens)
+    if dev.type != "cuda":
+        raise ValueError(f"bucket_accumulate_mma: unsupported device {dev}")
+    return _bucket_launch(gs, pts, starts, lens, mma=True)

@@ -10,7 +10,10 @@ Pippenger of the JAX package:
   run, Y is negated for negative digits, and identity inputs and |d| = 0 go
   to the dropped run; run bounds by searchsorted;
 - bucket accumulation: kernel K2 (backend/kernels.py), all windows in one
-  launch, each (window, bucket) walking its own run;
+  launch, each (window, bucket) walking its own run; under
+  ZKSNAKE_MXU_MONTMUL=1 kernel K2m, the same with every product's
+  reductions on the tensor cores (the JAX package swaps its bucket
+  kernel's body under the flag);
 - the suffix-scan weighted reduction over every window at once, then a
   Horner pass across windows.
 
@@ -22,7 +25,7 @@ ported. G2 runs the same Pippenger (no double-and-add detour).
 import numpy as np
 import torch
 
-from . import kernels
+from . import config, kernels
 from .curve_ops import get_group_spec
 from .field import DTYPE, FieldSpec
 from .limbs import ints_to_limbs
@@ -213,13 +216,15 @@ def reduce_buckets(gs, buckets, c, S_top, V_cap):
 def msm_pippenger_many(gs, jobs, c):
     """M MSMs of one group with one window size c. jobs: [(P, slimbs)],
     P projective coords (nl, n_i) with Z in {0, 1}, slimbs (SL, n_i) raw
-    16-bit scalar limbs. Each job is sorted and bucket-accumulated (K2) on
-    its own; the reduction runs once over all of them. Returns the
-    projective results, leaves (nl, M)."""
+    16-bit scalar limbs. Each job is sorted and bucket-accumulated (K2, or
+    K2m under ZKSNAKE_MXU_MONTMUL=1) on its own; the reduction runs once
+    over all of them. Returns the projective results, leaves (nl, M)."""
+    mma = config.mxu_montmul()
+    accumulate = kernels.bucket_accumulate_mma if mma else kernels.bucket_accumulate
     sums = []
     for P, slimbs in jobs:
         pts, starts, lens, S_top, V_cap = sort_by_digit(gs, P, slimbs, c)
-        sums.append(kernels.bucket_accumulate(gs, pts, starts, lens))
+        sums.append(accumulate(gs, pts, starts, lens))
         del pts
     buckets = torch.stack(sums, dim=2)  # (3|6, nl, M, W, B2)
     return reduce_buckets(gs, gs.unflatten(list(buckets)), c, S_top, V_cap)

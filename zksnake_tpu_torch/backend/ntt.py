@@ -100,7 +100,8 @@ class Domain:
 
 
 def _ntt(dom: Domain, x, tw):
-    """x: (nl, n) Montgomery coefficients -> evaluations, natural order."""
+    """x: (nl, ..., n) Montgomery coefficients -> evaluations, natural
+    order; every polynomial of the batch in the same launches."""
     fs = dom.fs
     n = dom.n
     if n == 1:
@@ -109,12 +110,12 @@ def _ntt(dom: Domain, x, tw):
     dev = x.device
     stage = dom.stage_index(dev)
     for s in range(stage.shape[0]):
-        u, v = x[:, :h], x[:, h:]
-        w = tw[:, stage[s]]  # (nl, h)
+        u, v = x[..., :h], x[..., h:]
+        w = tw[:, stage[s]]  # (nl, h), broadcast over the batch
         a = mod_add(fs, u, v)
         b = mont_mul(fs, mod_sub(fs, u, v), w)
-        x = torch.stack([a, b], dim=-1).reshape(fs.nl, n)
-    return x[:, dom.bitrev(dev)]
+        x = torch.stack([a, b], dim=-1).reshape(x.shape)
+    return x[..., dom.bitrev(dev)]
 
 
 def ntt_device(dom: Domain, x):

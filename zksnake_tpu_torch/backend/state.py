@@ -3,6 +3,11 @@
 The JAX package keeps (nl, N) uint32 arrays of 16-bit limbs; the port keeps
 the same layout as int32, so moving state is a dtype change. The inputs are
 numpy arrays (np.asarray of the JAX arrays), so this module imports no JAX.
+
+PlonK keys need no helper here: the JAX package's ProvingKey.to_bytes() and
+VerifyingKey.to_bytes() read back with the port's plonk.ProvingKey /
+VerifyingKey.from_bytes, and the port's PlonkDeviceProver builds its device
+tensors from that key (tests/test_torch_plonk.py proves with one).
 """
 
 import numpy as np

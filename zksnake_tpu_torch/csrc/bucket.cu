@@ -35,56 +35,6 @@
 
 namespace {
 
-template <int NW>
-__device__ __forceinline__ zk::Fp<NW> load_leaf(const int32_t* base, int64_t leaf,
-                                                int64_t stride, int64_t idx,
-                                                zk::Fp<NW>*) {
-  return zk::load_limbs<NW>(base + leaf * 2 * NW * stride, stride, idx);
-}
-
-template <int NW>
-__device__ __forceinline__ zk::Fp2<NW> load_leaf(const int32_t* base, int64_t leaf,
-                                                 int64_t stride, int64_t idx,
-                                                 zk::Fp2<NW>*) {
-  zk::Fp2<NW> r;
-  r.a = zk::load_limbs<NW>(base + (2 * leaf) * 2 * NW * stride, stride, idx);
-  r.b = zk::load_limbs<NW>(base + (2 * leaf + 1) * 2 * NW * stride, stride, idx);
-  return r;
-}
-
-template <int NW>
-__device__ __forceinline__ void store_leaf(int32_t* base, int64_t leaf,
-                                           int64_t stride, int64_t idx,
-                                           const zk::Fp<NW>& v) {
-  zk::store_limbs<NW>(base + leaf * 2 * NW * stride, stride, idx, v);
-}
-
-template <int NW>
-__device__ __forceinline__ void store_leaf(int32_t* base, int64_t leaf,
-                                           int64_t stride, int64_t idx,
-                                           const zk::Fp2<NW>& v) {
-  zk::store_limbs<NW>(base + (2 * leaf) * 2 * NW * stride, stride, idx, v.a);
-  zk::store_limbs<NW>(base + (2 * leaf + 1) * 2 * NW * stride, stride, idx, v.b);
-}
-
-template <int NW>
-__device__ __forceinline__ void set_zero(zk::Fp<NW>& v) { v = zk::fzero<NW>(); }
-template <int NW>
-__device__ __forceinline__ void set_zero(zk::Fp2<NW>& v) {
-  v.a = zk::fzero<NW>();
-  v.b = zk::fzero<NW>();
-}
-template <int NW>
-__device__ __forceinline__ void set_one(zk::Fp<NW>& v, const zk::FieldParams<NW>& P) {
-#pragma unroll
-  for (int j = 0; j < NW; ++j) v.c[j] = P.one[j];
-}
-template <int NW>
-__device__ __forceinline__ void set_one(zk::Fp2<NW>& v, const zk::FieldParams<NW>& P) {
-  set_one<NW>(v.a, P);
-  v.b = zk::fzero<NW>();
-}
-
 template <class F, int NW>
 __global__ void __launch_bounds__(128)
 bucket_kernel(const int32_t* __restrict__ pts, const int32_t* __restrict__ starts,
@@ -101,46 +51,38 @@ bucket_kernel(const int32_t* __restrict__ pts, const int32_t* __restrict__ start
   const int32_t* row = pts + w * n;
 
   F X, Y, Z;
-  set_zero<NW>(X);
-  set_one<NW>(Y, P);
-  set_zero<NW>(Z);
+  zk::set_zero<NW>(X);
+  zk::set_one<NW>(Y, P);
+  zk::set_zero<NW>(Z);
   for (int k = 0; k < len; ++k) {
     const int64_t pos = start + k;
-    const F qx = load_leaf<NW>(row, 0, stride, pos, (F*)nullptr);
-    const F qy = load_leaf<NW>(row, 1, stride, pos, (F*)nullptr);
+    const F qx = zk::load_leaf<NW>(row, 0, stride, pos, (F*)nullptr);
+    const F qy = zk::load_leaf<NW>(row, 1, stride, pos, (F*)nullptr);
     zk::add_affine<F, NW>(X, Y, Z, qx, qy, b3, P);
   }
-  store_leaf<NW>(out, 0, nb, tid, X);
-  store_leaf<NW>(out, 1, nb, tid, Y);
-  store_leaf<NW>(out, 2, nb, tid, Z);
+  zk::store_leaf<NW>(out, 0, nb, tid, X);
+  zk::store_leaf<NW>(out, 1, nb, tid, Y);
+  zk::store_leaf<NW>(out, 2, nb, tid, Z);
 }
 
 template <int NW>
 int launch(const void* pts, const void* starts, const void* lens, void* out,
            int group, int W, int B2, int64_t n, const uint32_t* p, uint32_t pinv,
            const uint32_t* one, const uint32_t* b3, cudaStream_t stream) {
-  zk::FieldParams<NW> P;
-  for (int j = 0; j < NW; ++j) {
-    P.p[j] = p[j];
-    P.one[j] = one[j];
-  }
-  P.pinv = pinv;
+  const zk::FieldParams<NW> P = zk::field_params<NW>(p, pinv, one);
   const int64_t nb = (int64_t)W * B2;
   const int threads = 128;
   const unsigned blocks = (unsigned)((nb + threads - 1) / threads);
   if (nb == 0) return (int)cudaGetLastError();
   if (group == 1) {
     zk::Fp<NW> c;
-    for (int j = 0; j < NW; ++j) c.c[j] = b3[j];
+    zk::load_b3<NW>(c, b3);
     bucket_kernel<zk::Fp<NW>, NW><<<blocks, threads, 0, stream>>>(
         (const int32_t*)pts, (const int32_t*)starts, (const int32_t*)lens,
         (int32_t*)out, W, B2, n, P, c);
   } else if (group == 2) {
     zk::Fp2<NW> c;
-    for (int j = 0; j < NW; ++j) {
-      c.a.c[j] = b3[j];
-      c.b.c[j] = b3[NW + j];
-    }
+    zk::load_b3<NW>(c, b3);
     bucket_kernel<zk::Fp2<NW>, NW><<<blocks, threads, 0, stream>>>(
         (const int32_t*)pts, (const int32_t*)starts, (const int32_t*)lens,
         (int32_t*)out, W, B2, n, P, c);

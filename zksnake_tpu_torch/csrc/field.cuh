@@ -1,5 +1,5 @@
 // Montgomery field and curve arithmetic shared by the montmul (K1),
-// bucket (K2) and montmul_mma (K3) kernels.
+// bucket (K2), montmul_mma (K3) and bucket_mma (K2m) kernels.
 //
 // Device tensors hold 16-bit limbs in int32 lanes, limbs-first (nl, N), as
 // zksnake_tpu.backend.field does. Inside a thread two limbs are paired into
@@ -136,12 +136,28 @@ __device__ __forceinline__ Fp<NW> fzero() {
 // --------------------------------------------------------------- Fp2 ------
 // Karatsuba, as zksnake_tpu.backend.curve_ops.DevFq2.mul_many.
 
+// A base-field product: CIOS (fmul above); K2m passes its tensor-core
+// product instead. mul(a, b) -> Fp<NW>.
 template <int NW>
-__device__ __forceinline__ Fp2<NW> fmul(const Fp2<NW>& x, const Fp2<NW>& y,
-                                        const FieldParams<NW>& P) {
-  const Fp<NW> t0 = fmul(x.a, y.a, P);
-  const Fp<NW> t1 = fmul(x.b, y.b, P);
-  const Fp<NW> t2 = fmul(fadd(x.a, x.b, P), fadd(y.a, y.b, P), P);
+struct CiosMul {
+  const FieldParams<NW>& P;
+  __device__ __forceinline__ Fp<NW> operator()(const Fp<NW>& a, const Fp<NW>& b) const {
+    return fmul(a, b, P);
+  }
+};
+
+template <int NW, class M>
+__device__ __forceinline__ Fp<NW> fmul_with(const Fp<NW>& a, const Fp<NW>& b,
+                                            const FieldParams<NW>&, const M& mul) {
+  return mul(a, b);
+}
+
+template <int NW, class M>
+__device__ __forceinline__ Fp2<NW> fmul_with(const Fp2<NW>& x, const Fp2<NW>& y,
+                                             const FieldParams<NW>& P, const M& mul) {
+  const Fp<NW> t0 = mul(x.a, y.a);
+  const Fp<NW> t1 = mul(x.b, y.b);
+  const Fp<NW> t2 = mul(fadd(x.a, x.b, P), fadd(y.a, y.b, P));
   Fp2<NW> r;
   r.a = fsub(t0, t1, P);
   r.b = fsub(fsub(t2, t0, P), t1, P);
@@ -197,26 +213,110 @@ __device__ __forceinline__ void store_limbs(int32_t* plane, int64_t stride,
 // Complete mixed addition, RCB15 Algorithm 8 with a = 0: (X1:Y1:Z1) += (X2, Y2)
 // with Z2 = 1. The same formula as GroupSpec.add_affine, so every output
 // coordinate is the same field element. (X2, Y2) must not be the identity.
-template <class F, int NW>
-__device__ __forceinline__ void add_affine(F& X1, F& Y1, F& Z1, const F& X2,
-                                           const F& Y2, const F& b3,
-                                           const FieldParams<NW>& P) {
-  const F t0 = fmul(X1, X2, P);
-  const F t1 = fmul(Y1, Y2, P);
-  const F s3 = fmul(fadd(X1, Y1, P), fadd(X2, Y2, P), P);
-  const F y2z1 = fmul(Y2, Z1, P);
-  const F x2z1 = fmul(X2, Z1, P);
+// Every field product goes through `mul` (13 of them).
+template <class F, int NW, class M>
+__device__ __forceinline__ void add_affine_with(F& X1, F& Y1, F& Z1, const F& X2,
+                                                const F& Y2, const F& b3,
+                                                const FieldParams<NW>& P, const M& mul) {
+  const F t0 = fmul_with(X1, X2, P, mul);
+  const F t1 = fmul_with(Y1, Y2, P, mul);
+  const F s3 = fmul_with(fadd(X1, Y1, P), fadd(X2, Y2, P), P, mul);
+  const F y2z1 = fmul_with(Y2, Z1, P, mul);
+  const F x2z1 = fmul_with(X2, Z1, P, mul);
   const F t3 = fsub(s3, fadd(t0, t1, P), P);  // X1 Y2 + X2 Y1
   const F t4 = fadd(y2z1, Y1, P);             // Y1 + Y2 Z1
   const F t5 = fadd(x2z1, X1, P);             // X1 + X2 Z1
   const F t0_3 = fadd(fadd(t0, t0, P), t0, P);
-  const F t2b = fmul(b3, Z1, P);
-  const F y3p = fmul(b3, t5, P);
+  const F t2b = fmul_with(b3, Z1, P, mul);
+  const F y3p = fmul_with(b3, t5, P, mul);
   const F z3s = fadd(t1, t2b, P);
   const F t1m = fsub(t1, t2b, P);
-  X1 = fsub(fmul(t3, t1m, P), fmul(t4, y3p, P), P);
-  Y1 = fadd(fmul(y3p, t0_3, P), fmul(t1m, z3s, P), P);
-  Z1 = fadd(fmul(z3s, t4, P), fmul(t0_3, t3, P), P);
+  X1 = fsub(fmul_with(t3, t1m, P, mul), fmul_with(t4, y3p, P, mul), P);
+  Y1 = fadd(fmul_with(y3p, t0_3, P, mul), fmul_with(t1m, z3s, P, mul), P);
+  Z1 = fadd(fmul_with(z3s, t4, P, mul), fmul_with(t0_3, t3, P, mul), P);
+}
+
+template <class F, int NW>
+__device__ __forceinline__ void add_affine(F& X1, F& Y1, F& Z1, const F& X2,
+                                           const F& Y2, const F& b3,
+                                           const FieldParams<NW>& P) {
+  add_affine_with<F, NW>(X1, Y1, Z1, X2, Y2, b3, P, CiosMul<NW>{P});
+}
+
+// ------------------------------------------------- bucket-kernel helpers --
+// A coordinate's limb planes in K2's layouts: leaf l of a point (G1: X, Y,
+// Z; G2: X.a, X.b, Y.a, ...) starts at base + l * nl * stride.
+
+template <int NW>
+__device__ __forceinline__ Fp<NW> load_leaf(const int32_t* base, int64_t leaf,
+                                            int64_t stride, int64_t idx, Fp<NW>*) {
+  return load_limbs<NW>(base + leaf * 2 * NW * stride, stride, idx);
+}
+
+template <int NW>
+__device__ __forceinline__ Fp2<NW> load_leaf(const int32_t* base, int64_t leaf,
+                                             int64_t stride, int64_t idx, Fp2<NW>*) {
+  Fp2<NW> r;
+  r.a = load_limbs<NW>(base + (2 * leaf) * 2 * NW * stride, stride, idx);
+  r.b = load_limbs<NW>(base + (2 * leaf + 1) * 2 * NW * stride, stride, idx);
+  return r;
+}
+
+template <int NW>
+__device__ __forceinline__ void store_leaf(int32_t* base, int64_t leaf, int64_t stride,
+                                           int64_t idx, const Fp<NW>& v) {
+  store_limbs<NW>(base + leaf * 2 * NW * stride, stride, idx, v);
+}
+
+template <int NW>
+__device__ __forceinline__ void store_leaf(int32_t* base, int64_t leaf, int64_t stride,
+                                           int64_t idx, const Fp2<NW>& v) {
+  store_limbs<NW>(base + (2 * leaf) * 2 * NW * stride, stride, idx, v.a);
+  store_limbs<NW>(base + (2 * leaf + 1) * 2 * NW * stride, stride, idx, v.b);
+}
+
+template <int NW>
+__device__ __forceinline__ void set_zero(Fp<NW>& v) { v = fzero<NW>(); }
+template <int NW>
+__device__ __forceinline__ void set_zero(Fp2<NW>& v) {
+  v.a = fzero<NW>();
+  v.b = fzero<NW>();
+}
+template <int NW>
+__device__ __forceinline__ void set_one(Fp<NW>& v, const FieldParams<NW>& P) {
+#pragma unroll
+  for (int j = 0; j < NW; ++j) v.c[j] = P.one[j];
+}
+template <int NW>
+__device__ __forceinline__ void set_one(Fp2<NW>& v, const FieldParams<NW>& P) {
+  set_one<NW>(v.a, P);
+  v.b = fzero<NW>();
+}
+
+// Host side: the field constants and 3b (nl/2 words, or nl for G2: real
+// part then u part) of K2's and K2m's C interface as kernel parameters.
+template <int NW>
+inline FieldParams<NW> field_params(const uint32_t* p, uint32_t pinv, const uint32_t* one) {
+  FieldParams<NW> P;
+  for (int j = 0; j < NW; ++j) {
+    P.p[j] = p[j];
+    P.one[j] = one[j];
+  }
+  P.pinv = pinv;
+  return P;
+}
+
+template <int NW>
+inline void load_b3(Fp<NW>& c, const uint32_t* b3) {
+  for (int j = 0; j < NW; ++j) c.c[j] = b3[j];
+}
+
+template <int NW>
+inline void load_b3(Fp2<NW>& c, const uint32_t* b3) {
+  for (int j = 0; j < NW; ++j) {
+    c.a.c[j] = b3[j];
+    c.b.c[j] = b3[NW + j];
+  }
 }
 
 }  // namespace zk
