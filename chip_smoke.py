@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's Groth16 prover (BN254 and BLS12-381) and its
-PlonK prover (BN254) once on one CUDA card.
+"""Drive the PyTorch port's Groth16 prover (BN254 and BLS12-381), its
+PlonK prover (BN254) and its two measurement entry points once on one CUDA
+card.
 
     python3 chip_smoke.py                 # all phases, one card
     python3 chip_smoke.py --phases 0,1,2  # a subset (kernel checks only)
@@ -40,7 +41,17 @@ Phases, one line each or more:
      "BN254", device="cuda"): front end, setup, a cold and a warm prove,
      verify, then a warm prove with ZKSNAKE_MXU_MONTMUL=1 under the same 11
      blinds: byte-equal proofs that verify; K1 and K2 launch without the
-     flag, K1, K3 and K2m (and no K2) under it.
+     flag, K1, K3 and K2m (and no K2) under it;
+ 13. a measurement path: every stage of zksnake_tpu_torch.scripts.bench_sortdma
+     at its full shapes (n = 2^20, B2 = 4096, R = 385 / 392, NL = 16,
+     M = 6272), each S1-S8 kernel launched on it; then each of them against
+     its plain version, bit for bit, timed beside its bound, its plain
+     version and the fastest single PyTorch call of the same function;
+ 14. a measurement path: every variant of
+     zksnake_tpu_torch.scripts.debug_g2_block at B = 1024 lanes (one S9
+     launch each, checked by the script against its plain version); then
+     each variant timed (a replayed CUDA graph of launches, and the eager
+     call) beside its bound and its plain version.
 
 It exits non-zero on any failure, when no CUDA device is present, and when
 jax or any module of zksnake_tpu was imported. The last four lines are the
@@ -64,6 +75,8 @@ K2_CURVES = ["BN254", "BLS12_381"]
 PROVE_LOGN = 17
 MSM_LOGN = 20
 PLONK_LOGN = 15
+RELAYOUT_LOGN = 20  # bench_sortdma's n
+G2_BLOCK_LANES = 1024  # debug_g2_mosaic.py's B
 
 # Peak rates of one NVIDIA H100 SXM (dense): HBM3 3.35 TB/s and int8 tensor
 # cores 1,979 TOP/s (NVIDIA's data sheet); 32-bit integer multiply-adds at 64
@@ -127,6 +140,32 @@ class Ctx:
         for _ in range(reps):
             fn()
         return (time.perf_counter() - t0) * 1e3 / reps
+
+    def graph_ms(self, fn, reps):
+        """Mean device ms of fn over reps calls captured in one CUDA graph
+        and replayed, so the host's launch overhead drops out (time_ms on
+        the CPU)."""
+        torch = self.torch
+        if self.device.type != "cuda":
+            return self.time_ms(fn, reps)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
 
 
 def smi_line():
@@ -771,12 +810,161 @@ def phase_plonk(ctx):
     log("[12] prove phases, flag " + json.dumps(secs(phases_on)))
 
 
+def _library_calls(name, args):
+    """[(expression, fn)]: single PyTorch calls that compute kernel `name`'s
+    function on its inputs, the yardsticks of library_ms (timed here, used
+    nowhere in the port)."""
+    import torch
+
+    if name in ("expand_rows", "expand_rows_pm"):
+        src, starts, R = args
+        rows = (starts.long()[:, None] + torch.arange(R, device=src.device)).reshape(-1)
+        return [
+            ("torch.index_select(src.unfold(0, R, 1).transpose(1, 2), 0, starts)",
+             lambda: torch.index_select(src.unfold(0, R, 1).transpose(1, 2), 0, starts)),
+            ("torch.index_select(src, 0, rows).view(B2, R, w), rows prebuilt",
+             lambda: torch.index_select(src, 0, rows).view(-1, R, src.shape[1])),
+        ]
+    if name == "expand_cols":
+        x, starts, R = args
+        return [("torch.index_select(x.unfold(1, R, 1).transpose(0, 1), 0, starts)",
+                 lambda: torch.index_select(x.unfold(1, R, 1).transpose(0, 1), 0, starts))]
+    (x,) = args
+    if name == "copy_tile":
+        return [("x.clone()", lambda: x.clone())]
+    return [("x.t().contiguous()", lambda: x.t().contiguous())]
+
+
+def _relayout_bound(name, args, out):
+    """Bytes this run's data needs: the source words the windows touch (an
+    expansion reads each once however often windows overlap), the starts,
+    and the output; S6 adds its tensor-core MACs (4 byte planes x 16 a
+    word, 2 operations each)."""
+    import numpy as np
+
+    if name in ("expand_rows", "expand_rows_pm", "expand_cols"):
+        src, starts, R = args
+        st = np.sort(starts.cpu().numpy().astype(np.int64))
+        touched = int(np.minimum(np.diff(st), R).sum()) + R if st.size else 0
+        per = src.shape[1] if name != "expand_cols" else src.shape[0]  # words a row / column
+        return bound(4 * (touched * per + starts.numel() + out.numel()), [])
+    (x,) = args
+    ops = [(128 * x.numel(), INT8_TC_OPS_S)] if name == "transpose_mma" else []
+    return bound(4 * (x.numel() + out.numel()), ops)
+
+
+def phase_relayout(ctx):
+    from zksnake_tpu_torch.backend import kernels
+    from zksnake_tpu_torch.scripts import bench_sortdma as bs
+
+    torch = ctx.torch
+    logn = RELAYOUT_LOGN if not ctx.rehearse else 10
+    sizes = {"b2": 48, "r_dma": 17, "r": 19} if ctx.rehearse else None
+    n = 1 << logn
+    kernels.reset_launches()
+    stages = bs.run_stages(bs.STAGES, n, ctx.device, sizes, echo=False)
+    ctx.sync()
+    launches = dict(kernels.LAUNCHES)
+    names = [k for k, _ in bs.KERNELS.values()]
+    _require_launches(ctx, "bench_sortdma", launches, names)
+    ctx.paths["bench_sortdma"] = launches
+    for r in stages:
+        log(f"[13] bench_sortdma 2^{logn} " + json.dumps(r))
+    rows = {}
+    for stage, (name, plain) in bs.KERNELS.items():
+        st = bs.make(stage, n, ctx.device, sizes)
+        got = st.run(*st.args)
+        want = plain(*st.args)
+        ctx.sync()
+        if got.shape != want.shape:
+            raise AssertionError(f"{name} ({stage}): shape {tuple(got.shape)} != plain's")
+        err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
+        if err != 0:
+            raise AssertionError(f"{name} ({stage}): kernel != plain (max |err| {err})")
+        ms = ctx.time_ms(lambda: st.run(*st.args), 20)
+        plain_ms = ctx.time_ms(lambda: plain(*st.args), 3)
+        libs = []
+        for expr, fn in _library_calls(name, st.args):
+            if not torch.equal(fn(), want):
+                raise AssertionError(f"{name}: the library call {expr} computes another function")
+            libs.append((ctx.time_ms(fn, 20), expr))
+        lib_ms, lib = min(libs)
+        bms, bby = _relayout_bound(name, st.args, got)
+        rows[name] = {"stage": stage, "shape_in": [list(a.shape) for a in st.args if hasattr(a, "shape")],
+                      "shape_out": list(got.shape), "max_abs_err": err, "ms": ms,
+                      "plain_ms": plain_ms, "bound_ms": bms, "bound_by": bby,
+                      "library_ms": lib_ms, "library": lib,
+                      "library_all": {e: t for t, e in libs}}
+        log(f"[13] {name} ({stage}) {rows[name]['shape_in']} -> {list(got.shape)}: bit-identical "
+            f"to plain; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms "
+            f"({lib}), bound {bms:.4f} ms ({bby})")
+        del st, got, want
+    ctx.detail["relayout"] = {"stages": stages, "kernels": rows}
+    ctx.kernels.update(rows)
+
+
+def _g2_block_bound(variant, lanes):
+    """S9's bound: its CIOS products (39 a lane for the add, 13 Karatsuba
+    Fq2 products; 3 an Fq2 product, k a lane for a k-stack)
+    against reading its input planes and writing its output planes once."""
+    from zksnake_tpu_torch.backend import kernels
+
+    _, k, n_in, n_out = kernels.G2_BLOCK_VARIANTS[variant]
+    prods = {"addaff": 39, "addaff1": 39, "fq2mul": 3, "fq2mul1": 3, "select": 0}.get(variant, k)
+    return bound(4 * 16 * lanes * (n_in + n_out), [(prods * lanes * cios_imads(8), IMAD_OPS_S)])
+
+
+def phase_g2_block(ctx):
+    from zksnake_tpu_torch.backend import kernels
+    from zksnake_tpu_torch.scripts import debug_g2_block as dg
+
+    torch = ctx.torch
+    lanes = G2_BLOCK_LANES if not ctx.rehearse else 64
+    variants = list(kernels.G2_BLOCK_VARIANTS)
+    kernels.reset_launches()
+    runs = [dg.run(v, ctx.device, lanes) for v in variants]  # each checks kernel == plain
+    ctx.sync()
+    launches = dict(kernels.LAUNCHES)
+    _require_launches(ctx, "debug_g2_block", launches, ("g2_block",))
+    if ctx.device.type == "cuda" and launches["g2_block"] != len(variants):
+        raise AssertionError(f"debug_g2_block: {launches['g2_block']} S9 launches for "
+                             f"{len(variants)} variants")
+    ctx.paths["debug_g2_block"] = launches
+    rows = []
+    for v, r in zip(variants, runs):
+        ins = dg.inputs(v, lanes, ctx.device)
+        got = kernels.g2_block(v, ins)
+        want = kernels.g2_block_plain(v, ins)
+        ctx.sync()
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"g2_block {v}: kernel != plain")
+        # one launch is shorter than the wrapper's host work, so the
+        # kernel's own time comes from a replayed graph of launches; the
+        # eager call's time beside it
+        ms = ctx.graph_ms(lambda: kernels.g2_block(v, ins), 50)
+        call_ms = ctx.time_ms(lambda: kernels.g2_block(v, ins), 50)
+        plain_ms = ctx.time_ms(lambda: kernels.g2_block_plain(v, ins), 3)
+        bms, bby = _g2_block_bound(v, lanes)
+        rows.append({"variant": v, "lanes": lanes, "max_abs_err": 0, "ms": ms,
+                     "call_ms": call_ms, "script_s": r["s"], "plain_ms": plain_ms,
+                     "bound_ms": bms, "bound_by": bby})
+        log(f"[14] g2_block {v} ({lanes} lanes): bit-identical to plain; kernel {ms:.4f} ms "
+            f"(graph replay; eager call {call_ms:.4f} ms), plain {plain_ms:.4f} ms, "
+            f"bound {bms:.6f} ms ({bby})")
+    ctx.detail["g2_block"] = rows
+    # the kernels line carries the add (the probe's first variant); every
+    # variant is on the details line
+    ctx.kernels["g2_block"] = dict(rows[0], library_ms=None,
+                                   library="none: no PyTorch call computes a G2 point add")
+
+
 PHASES = [phase_build, phase_k1, phase_k3, phase_k2, phase_k2m, phase_msm, phase_msm_mma,
           phase_msm_g2, phase_fixtures, phase_plonk_fixtures, phase_bn254, phase_bls12_381,
-          phase_plonk]
+          phase_plonk, phase_relayout, phase_g2_block]
 
 # kernel -> (source, the TPU kernel it replaces, the main-path run its
 # launch count is read from)
+RELAYOUT_CU = "zksnake_tpu_torch/csrc/relayout.cu"
 SOURCES = {
     "mont_mul": ("zksnake_tpu_torch/csrc/montmul.cu", "zksnake_tpu/backend/pallas_field.py:43",
                  "bls12_381_prove_warm"),
@@ -786,6 +974,16 @@ SOURCES = {
                      "zksnake_tpu/backend/pallas_field.py:24", "bls12_381_prove_warm_mxu"),
     "bucket_accumulate_mma": ("zksnake_tpu_torch/csrc/bucket_mma.cu",
                               "zksnake_tpu/backend/pallas_field.py:274", "plonk_prove_warm_mxu"),
+    "expand_rows": (RELAYOUT_CU, "scripts/bench_sortdma.py:86", "bench_sortdma"),
+    "transpose_tile": (RELAYOUT_CU, "scripts/bench_sortdma.py:139", "bench_sortdma"),
+    "expand_cols": (RELAYOUT_CU, "scripts/bench_sortdma.py:177", "bench_sortdma"),
+    "copy_tile": (RELAYOUT_CU, "scripts/bench_sortdma.py:279", "bench_sortdma"),
+    "transpose_fat": (RELAYOUT_CU, "scripts/bench_sortdma.py:309", "bench_sortdma"),
+    "transpose_mma": (RELAYOUT_CU, "scripts/bench_sortdma.py:345", "bench_sortdma"),
+    "expand_rows_pm": (RELAYOUT_CU, "scripts/bench_sortdma.py:398", "bench_sortdma"),
+    "transpose_flat": (RELAYOUT_CU, "scripts/bench_sortdma.py:455", "bench_sortdma"),
+    "g2_block": ("zksnake_tpu_torch/csrc/g2_block.cu", "scripts/debug_g2_mosaic.py:21",
+                 "debug_g2_block"),
 }
 
 
@@ -830,8 +1028,9 @@ def main():
             "max_abs_err": k.get("max_abs_err"), "ms": k.get("ms"),
             "plain_ms": k.get("plain_ms"), "bound_ms": k.get("bound_ms"),
             "bound_by": k.get("bound_by"),
-            # no single PyTorch call computes a Montgomery product or a bucket sum
-            "library_ms": None,
+            # no single PyTorch call computes a Montgomery product, a bucket
+            # sum or a point add; S1-S8 carry the fastest one that relayouts
+            "library_ms": k.get("library_ms"), "library": k.get("library"),
             "launches_by_path": {p: c.get(name) for p, c in ctx.paths.items()},
         })
     log(f"total {time.perf_counter() - t_start:.3f} s")

@@ -7,10 +7,12 @@ the card:
     python -m pytest tests/test_torch_kernels_cuda.py -q
 
 K1, K2 and K2m (16- and 24-limb builds) and K3 must match their plain versions limb
-for limb (integer field arithmetic has no tolerance), each wrapper must
-count one launch per call, refuse what its kernel does not take, and the
-MSM and the fixture proofs must come out the same on the card as on the
-host. The MSM oracle is the JAX package's host bigint MSM, whose modules
+for limb (integer field arithmetic has no tolerance), and so must the relayout
+kernels S1-S8 and the G2 probe S9 on ragged edges (a start of n - 1, R not a
+multiple of 4, planes not a multiple of any tile, all-ones bytes); each
+wrapper must count one launch per call, refuse what its kernel does not take,
+and the MSM and the fixture proofs must come out the same on the card as on
+the host. The MSM oracle is the JAX package's host bigint MSM, whose modules
 import no jax, so the file runs where jax is not installed.
 """
 
@@ -24,11 +26,12 @@ import torch
 from zksnake_tpu.backend.dispatch import _host_msm
 from zksnake_tpu.curves import ec_bn254
 from zksnake_tpu_torch import BLS12_381_MODULUS, BN254_MODULUS, BN254_SCALAR_FIELD
-from zksnake_tpu_torch.backend import kernels
+from zksnake_tpu_torch.backend import kernels, relayout
 from zksnake_tpu_torch.backend import msm as tmsm
 from zksnake_tpu_torch.backend.curve_ops import get_group_spec
 from zksnake_tpu_torch.backend.field import FieldSpec
 from zksnake_tpu_torch.curves import get_curve_module
+from zksnake_tpu_torch.scripts import debug_g2_block
 
 pytestmark = pytest.mark.cuda
 
@@ -195,3 +198,115 @@ def test_fixture_proof_on_card(card, curve, mxu, monkeypatch):
     want = (FIXTURES / f"groth16_{curve.lower()}.hex").read_text().strip()
     assert proof.to_bytes() == bytes.fromhex(want)
     assert g16.verify(proof, pub)
+
+
+def u32_planes(shape, seed):
+    """int32 planes of uniform 32-bit words (negative where the top bit is set)."""
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(0, 1 << 32, size=shape, dtype=np.uint64)
+                            .astype(np.uint32).view(np.int32))
+
+
+def ragged_starts(n, b2, seed):
+    """b2 sorted starts in [0, n), the first 0 and the last n - 1."""
+    rng = np.random.default_rng(seed)
+    st = np.sort(rng.integers(0, n, size=b2))
+    st[0], st[-1] = 0, n - 1
+    return torch.from_numpy(st.astype(np.int32))
+
+
+@pytest.mark.parametrize("name", ["expand_rows", "expand_rows_pm"])
+@pytest.mark.parametrize("w, R", [(32, 37), (32, 385), (6, 37)])
+def test_expand_rows_kernels_match_plain(card, name, w, R):
+    """S1 and S7: rows of 32 words (the script's) and of 6 (source windows
+    off 16-byte alignment), R odd, a window that ends at the last row."""
+    n = 1000
+    src, starts = u32_planes((n + R, w), 1), ragged_starts(n, 50, 2)
+    before = kernels.LAUNCHES[name]
+    got = getattr(relayout, name)(src.to(card), starts.to(card), R)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[name] == before + 1
+    assert torch.equal(got.cpu(), relayout.expand_rows_plain(src, starts, R))
+
+
+@pytest.mark.parametrize("R", [37, 392])
+def test_expand_cols_kernel_matches_plain(card, R):
+    """S3: every limb row's window starts at any word offset."""
+    n = 1000
+    x, starts = u32_planes((16, n + R), 3), ragged_starts(n, 50, 4)
+    before = kernels.LAUNCHES["expand_cols"]
+    got = relayout.expand_cols(x.to(card), starts.to(card), R)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["expand_cols"] == before + 1
+    assert torch.equal(got.cpu(), relayout.expand_cols_plain(x, starts, R))
+
+
+@pytest.mark.parametrize("name", ["expand_rows", "expand_rows_pm", "expand_cols"])
+def test_expand_kernels_zero_windows_outside_the_source(card, name):
+    """S1, S7 and S3: a start past n or below 0 gives a bucket of zeros,
+    as the plain versions do; the buckets around it are copied."""
+    n, R = 300, 37
+    x = u32_planes((n + R, 6) if name != "expand_cols" else (16, n + R), 7)
+    starts = torch.tensor([0, n, n + 1, n + R, -1, 5, 1 << 30], dtype=torch.int32)
+    plain = relayout.expand_cols_plain if name == "expand_cols" else relayout.expand_rows_plain
+    want = plain(x, starts, R)
+    assert not want[[2, 3, 4, 6]].any() and want[[0, 1, 5]].all()
+    got = getattr(relayout, name)(x.to(card), starts.to(card), R)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("name", ["transpose_tile", "copy_tile", "transpose_fat",
+                                  "transpose_mma", "transpose_flat"])
+@pytest.mark.parametrize("shape", [(100, 76), (37, 53), (32, 1000), (200, 320)])
+def test_relayout_2d_kernels_match_plain(card, name, shape):
+    """S2, S4, S5, S6 and S8 on planes that are no multiple of their tiles
+    (and, at 37 x 53, of the 16-byte chunk); row 3 is all 0xFF bytes."""
+    x = u32_planes(shape, 5)
+    x[3] = -1
+    plain = relayout.copy_plain if name == "copy_tile" else relayout.transpose_plain
+    before = kernels.LAUNCHES[name]
+    got = getattr(relayout, name)(x.to(card))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[name] == before + 1
+    assert torch.equal(got.cpu(), plain(x))
+
+
+@pytest.mark.parametrize("variant", sorted(kernels.G2_BLOCK_VARIANTS))
+def test_g2_block_kernel_matches_plain(card, variant):
+    """S9 at 100 lanes (not a multiple of the 128-thread block)."""
+    ins = debug_g2_block.inputs(variant, 100, card)
+    before = kernels.LAUNCHES["g2_block"]
+    got = kernels.g2_block(variant, ins)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["g2_block"] == before + 1
+    want = kernels.g2_block_plain(variant, ins)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_relayout_wrappers_refuse_what_the_kernels_do_not_take(card):
+    x = u32_planes((64, 64), 6).to(card)
+    starts = torch.zeros(4, dtype=torch.int32, device=card)
+    misaligned = torch.zeros(1 + 64 * 64, dtype=torch.int32, device=card)[1:].view(64, 64)
+    for fn in (relayout.transpose_tile, relayout.copy_tile, relayout.transpose_fat,
+               relayout.transpose_mma, relayout.transpose_flat):
+        with pytest.raises(TypeError):
+            fn(x.long())
+        with pytest.raises(ValueError):
+            fn(x[:, ::2])
+        with pytest.raises(ValueError):
+            fn(misaligned)
+    for fn in (relayout.expand_rows, relayout.expand_rows_pm, relayout.expand_cols):
+        with pytest.raises(ValueError):
+            fn(x, starts.cpu(), 4)
+        with pytest.raises(TypeError):
+            fn(x, starts.long(), 4)
+    ins = debug_g2_block.inputs("fq2mul", 8, card)
+    with pytest.raises(ValueError):
+        kernels.g2_block("fq2mul", ins[:3])
+    with pytest.raises(ValueError):
+        kernels.g2_block("fq2mul", ins[:3] + [ins[3].cpu()])
+    with pytest.raises(TypeError):
+        kernels.g2_block("fq2mul", [t.long() for t in ins])

@@ -10,6 +10,12 @@ reduction products run on the matrix unit; K2m `bucket_accumulate_mma`
 (csrc/bucket_mma.cu) replaces the same bucket_accumulate_pallas under
 ZKSNAKE_MXU_MONTMUL=1, where every product of its body is K3's.
 
+S1-S8 (csrc/relayout.cu) replace the Pallas kernels of
+scripts/bench_sortdma.py, the relayout probes of the MSM table; their
+wrappers and plain versions are in backend/relayout.py. S9 `g2_block`
+(csrc/g2_block.cu) replaces the one-block G2 probes of
+scripts/debug_g2_mosaic.py. Their launch counters are here with the rest.
+
 Each wrapper takes its plain version for a tensor on the CPU and launches
 its kernel for a CUDA tensor; any other device, a failed build or a launch
 error raises. There is no fallback from the kernel to the plain version.
@@ -49,11 +55,15 @@ _SOURCES = {
     "bucket24": ("bucket.cu", ["-DZK_NL=24"]),
     "bucket_mma16": ("bucket_mma.cu", ["-DZK_NL=16"]),
     "bucket_mma24": ("bucket_mma.cu", ["-DZK_NL=24"]),
+    "relayout": ("relayout.cu", []),
+    "g2_block": ("g2_block.cu", []),
 }
 
 # launches of each kernel since the last reset_launches()
 LAUNCHES = {"mont_mul": 0, "bucket_accumulate": 0, "mont_mul_mma": 0,
-            "bucket_accumulate_mma": 0}
+            "bucket_accumulate_mma": 0, "expand_rows": 0, "transpose_tile": 0,
+            "expand_cols": 0, "copy_tile": 0, "transpose_fat": 0, "transpose_mma": 0,
+            "expand_rows_pm": 0, "transpose_flat": 0, "g2_block": 0}
 
 _LIBS = {}
 _LOCK = threading.Lock()
@@ -137,6 +147,17 @@ def _lib(name):
             elif name == "montmul_mma":
                 lib.zk_mont_mul_mma.argtypes = [vp, vp, vp, ll, i, vp, vp, vp]
                 lib.zk_mont_mul_mma.restype = i
+            elif name == "relayout":
+                lib.zk_expand.argtypes = [vp, ll, ll, i, i, vp, i, ll, vp, vp]
+                lib.zk_tile32.argtypes = [vp, vp, i, i, i, vp]
+                for fn in (lib.zk_expand, lib.zk_tile32, lib.zk_transpose_fat,
+                           lib.zk_transpose_flat, lib.zk_transpose_mma):
+                    fn.restype = i
+                for fn in (lib.zk_transpose_fat, lib.zk_transpose_flat, lib.zk_transpose_mma):
+                    fn.argtypes = [vp, vp, i, i, vp]
+            elif name == "g2_block":
+                lib.zk_g2_block.argtypes = [i, vp, i, vp, i, ll, i, vp, u32, vp, vp, vp]
+                lib.zk_g2_block.restype = i
             elif name.startswith("bucket_mma"):
                 lib.zk_bucket_accumulate_mma.argtypes = [
                     vp, vp, vp, vp, i, i, i, i, ll, vp, u32, vp, vp, vp, vp
@@ -444,3 +465,116 @@ def bucket_accumulate_mma(gs, pts, starts, lens):
     if dev.type != "cuda":
         raise ValueError(f"bucket_accumulate_mma: unsupported device {dev}")
     return _bucket_launch(gs, pts, starts, lens, mma=True)
+
+
+# -------------------------------------------------------------------- S9 --
+
+# variant -> (kernel variant id, stack width k, inputs, outputs); the names
+# and the in/out counts of scripts/debug_g2_mosaic.py. addaff1 (the script's
+# add with DevFq2.mul_many patched to per-pair Karatsuba products) is
+# addaff's arithmetic and kernel: a CUDA thread issues its products one by
+# one either way. fq2mul1 (the script's single-pair DevFq2.mul) is fq2mul's
+# product and kernel.
+G2_BLOCK_VARIANTS = {
+    "addaff": (0, 1, 10, 6), "addaff1": (0, 1, 10, 6),
+    "fq2mul": (1, 1, 4, 2), "fq2mul1": (1, 1, 4, 2),
+    "fqmul3d": (2, 3, 2, 2), "fqstack5": (2, 5, 2, 2), "fqstack6": (2, 6, 2, 2),
+    "fqstack15": (2, 15, 2, 2), "fqstack18": (2, 18, 2, 2),
+    "select": (3, 1, 4, 2),
+}
+
+
+def _g2_block_spec():
+    from ..curves.params import CURVES
+    from .curve_ops import get_group_spec
+
+    return get_group_spec(CURVES["BN254"], 2, plain=True)
+
+
+def _g2_block_pairwise_spec():
+    """The BN254 G2 spec with DevFq2.mul_many issued one pair at a time,
+    as scripts/debug_g2_mosaic.py:46-56 patches it for addaff1."""
+    import copy
+
+    from .curve_ops import DevFq2
+
+    class PairwiseFq2(DevFq2):
+        def mul_many(self, pairs):
+            return [DevFq2.mul_many(self, [pr])[0] for pr in pairs]
+
+    gs = copy.copy(_g2_block_spec())
+    gs.F = PairwiseFq2(gs.fs, plain=True)
+    return gs
+
+
+def g2_block_plain(variant, ins):
+    """Plain version of S9 on any device: the BN254 G2 probe `variant` of
+    scripts/debug_g2_mosaic.py on (16, B) int32 limb planes `ins`, through
+    the port's curve_ops and field (K1's plain product). Returns the list
+    of output planes. addaff1 issues the add's Karatsuba products pair by
+    pair, as the script's patched DevFq2.mul_many does; the same elements
+    as addaff."""
+    from .field import mont_mul as mul
+
+    gs = _g2_block_spec()
+    F = gs.F
+    v = list(ins)
+    if variant in ("addaff", "addaff1"):
+        if variant == "addaff1":
+            gs = _g2_block_pairwise_spec()
+        P = ((v[0], v[1]), (v[2], v[3]), (v[4], v[5]))
+        x3, y3, z3 = gs.add_affine(P, ((v[6], v[7]), (v[8], v[9])))
+        return [x3[0], x3[1], y3[0], y3[1], z3[0], z3[1]]
+    if variant == "fq2mul":
+        (c0, c1), = F.mul_many([((v[0], v[1]), (v[2], v[3]))])
+        return [c0, c1]
+    if variant == "fq2mul1":
+        return list(F.mul((v[0], v[1]), (v[2], v[3])))
+    if variant == "select":
+        s = F.select(v[0][0] > 0, (v[0], v[1]), (v[2], v[3]))
+        return [s[0], torch.where(F.is_zero(s)[None], s[1], v[0])]
+    _, k, _, _ = G2_BLOCK_VARIANTS[variant]
+    a = torch.stack([v[i % 2] for i in range(k)], dim=1)
+    b = torch.stack([v[(i + 1) % 2] for i in range(k)], dim=1)
+    p = mul(gs.fs, a, b, plain=True)
+    return [p[:, 0], p[:, k - 1]]
+
+
+def g2_block(variant, ins):
+    """S9 on CUDA (one launch), its plain version on the CPU. ins: the
+    variant's (16, B) int32 planes (G2_BLOCK_VARIANTS)."""
+    if variant not in G2_BLOCK_VARIANTS:
+        raise ValueError(f"g2_block: unknown variant {variant!r}")
+    vid, k, n_in, n_out = G2_BLOCK_VARIANTS[variant]
+    if len(ins) != n_in:
+        raise ValueError(f"g2_block {variant}: expected {n_in} inputs, got {len(ins)}")
+    dev = _device_of(*ins)
+    if dev.type == "cpu":
+        return g2_block_plain(variant, ins)
+    if dev.type != "cuda":
+        raise ValueError(f"g2_block: unsupported device {dev}")
+    gs = _g2_block_spec()
+    fs = gs.fs
+    if ins[0].ndim != 2 or ins[0].shape[0] != fs.nl:
+        raise ValueError(f"g2_block: expected ({fs.nl}, B) planes, got {tuple(ins[0].shape)}")
+    for j, t in enumerate(ins):
+        _require(t, f"ins[{j}]", ins[0].shape)
+    B = ins[0].shape[1]
+    if vid == 2:
+        outs = [torch.empty((fs.nl, k, B), dtype=torch.int32, device=dev)]
+    else:
+        outs = [torch.empty_like(ins[0]) for _ in range(n_out)]
+    in_ptrs = (ctypes.c_void_p * n_in)(*[t.data_ptr() for t in ins])
+    out_ptrs = (ctypes.c_void_p * len(outs))(*[t.data_ptr() for t in outs])
+    lib = _lib("g2_block")
+    with torch.cuda.device(dev):
+        rc = lib.zk_g2_block(
+            vid, ctypes.addressof(in_ptrs), n_in, ctypes.addressof(out_ptrs), len(outs), B, k,
+            ctypes.addressof(fs.words("p")), fs.pinv32, ctypes.addressof(fs.words("one")),
+            ctypes.addressof(gs.b3_words()), torch.cuda.current_stream(dev).cuda_stream,
+        )
+    LAUNCHES["g2_block"] += 1
+    _check(rc, "g2_block")
+    if vid == 2:
+        return [outs[0][:, 0], outs[0][:, k - 1]]
+    return outs
