@@ -15,11 +15,14 @@ Phases, one line each or more:
      BN254 Fr and Fq and (24, 2^18) for BLS12-381 Fq, with 0, 1, p-1 lanes;
   2. K3 (mont_mul_mma) against its plain version, bit for bit, at the same
      shapes, timed beside K1;
-  3. K2 (bucket_accumulate) against its plain version, bit for bit, on one
-     MSM's windows at the prove shape (2^17 points, c = 11), G1 and G2 of
-     BN254 (16-limb build) and of BLS12-381 (24-limb build);
-  4. K2m (bucket_accumulate_mma) at the same four shapes against its plain
-     version and against K2, bit for bit, timed in turns with K2;
+  3. K2 (bucket_accumulate) against its chunked plain version, bit for bit,
+     on one MSM's windows at the prove shape (2^17 points, c = 11), G1 and G2
+     of BN254 (16-limb build) and of BLS12-381 (24-limb build), and at the
+     G1 MSM's shape (2^20 points, c = 13); the chunk length, the chunks and
+     the CUDA launches of one call;
+  4. K2m (bucket_accumulate_mma) at the four prove shapes against its plain
+     version and the rank-order plain K2, bit for bit, and against K2 as
+     points (cross-multiplied), timed in turns with K2;
   5. a device-resident BN254 G1 MSM at 2^20 against the host oracle
      G * sum(s_i (i % 64 + 1)) for points (i % 64 + 1) G;
   6. the same MSM with ZKSNAKE_MXU_MONTMUL=1 (K3 for the large products, K2m
@@ -45,8 +48,9 @@ Phases, one line each or more:
  13. a measurement path: every stage of zksnake_tpu_torch.scripts.bench_sortdma
      at its full shapes (n = 2^20, B2 = 4096, R = 385 / 392, NL = 16,
      M = 6272), each S1-S8 kernel launched on it; then each of them against
-     its plain version, bit for bit, timed beside its bound, its plain
-     version and the fastest single PyTorch call of the same function;
+     its plain version, bit for bit, timed beside its bound and its plain
+     version, and in turns with the fastest single PyTorch call of the same
+     function;
  14. a measurement path: every variant of
      zksnake_tpu_torch.scripts.debug_g2_block at B = 1024 lanes (one S9
      launch each, checked by the script against its plain version); then
@@ -205,21 +209,16 @@ def phase_build(ctx):
         t0 = time.perf_counter()
         kernels.build()
         build_s = time.perf_counter() - t0
-        ptxas = {}
-        for name in kernels._SOURCES:
-            path = os.path.join(kernels.BUILD_DIR, f"{name}.ptxas.txt")
-            if os.path.exists(path):
-                with open(path) as f:
-                    ptxas[name] = [l.strip() for l in f if "registers" in l or "spill" in l]
+        ptxas = {name: kernels.ptxas_report(name) for name in kernels._SOURCES}
         ctx.detail["ptxas"] = ptxas
         ctx.detail["build_s"] = build_s
         log(f"[0] card: {ctx.detail['smi']}")
         log(f"[0] torch {torch.__version__} cuda {torch.version.cuda} "
             f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
         log(f"[0] kernels built in {build_s:.3f} s from zksnake_tpu_torch/csrc")
-        for name, lines in ptxas.items():
-            for l in lines:
-                log(f"[0] ptxas {name}: {l}")
+        for name, rows in ptxas.items():
+            log(f"[0] ptxas {name}: " + ", ".join(
+                f"{k} {r} registers, {sp} B spilled" for k, r, sp in rows))
     else:
         log(f"[0] rehearsal on the CPU, torch {torch.__version__}")
 
@@ -326,58 +325,94 @@ def _tiled_points(gs, curve_mod, n, device):
     return gs.map(lambda t: t.repeat(1, n // 64), P64), base
 
 
-def phase_k2(ctx):
-    from zksnake_tpu_torch.backend import kernels
+def _cuda_launches(ctx, fn):
+    """CUDA kernels one call of fn runs on the card, from a torch.profiler
+    trace of that call (None on the CPU or where the trace shows none)."""
+    if ctx.device.type != "cuda":
+        return None
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        ctx.sync()
+    n = sum(1 for e in prof.events() if e.device_type.name == "CUDA")
+    return n or None
+
+
+def _k2_inputs(ctx, curve_name, group, logn, c, seed=0x2B):
     from zksnake_tpu_torch.backend.curve_ops import get_group_spec
     from zksnake_tpu_torch.backend.msm import scalars_to_device, sort_by_digit
     from zksnake_tpu_torch.curves import get_curve_module
 
-    logn, c = (PROVE_LOGN, 11) if not ctx.rehearse else (9, 7)
+    cm = get_curve_module(curve_name, ctx.device)
+    curve = cm._curve
+    rng = random.Random(seed)
+    gs = get_group_spec(curve, group)
     n = 1 << logn
+    for _ in range(n * (group - 1)):  # G2 takes the n draws that follow G1's
+        rng.randrange(curve.r)
+    P, _ = _tiled_points(gs, cm, n, ctx.device)
+    s = scalars_to_device([rng.randrange(curve.r) for _ in range(n)], curve.r, ctx.device)
+    pts, starts, lens, _, _ = sort_by_digit(gs, P, s, c)
+    return gs, pts, starts, lens
+
+
+def phase_k2(ctx):
+    """K2 against its chunked plain version, limb for limb, at the four
+    prove shapes and at the G1 MSM's 2^20, c = 13 shape."""
+    from zksnake_tpu_torch.backend import kernels
+
+    T = kernels.K2_CHUNK
+    prove = (PROVE_LOGN, 11) if not ctx.rehearse else (9, 7)
+    shapes = [(cv, g) + prove for cv in K2_CURVES for g in (1, 2)]
+    shapes.append(("BN254", 1) + ((MSM_LOGN, 13) if not ctx.rehearse else (10, 9)))
     rows = []
-    for curve_name in K2_CURVES:
-        cm = get_curve_module(curve_name, ctx.device)
-        curve = cm._curve
-        rng = random.Random(0x2B)
-        for group in (1, 2):
-            gs = get_group_spec(curve, group)
-            P, _ = _tiled_points(gs, cm, n, ctx.device)
-            s = scalars_to_device([rng.randrange(curve.r) for _ in range(n)], curve.r, ctx.device)
-            pts, starts, lens, _, _ = sort_by_digit(gs, P, s, c)
-            got = kernels.bucket_accumulate(gs, pts, starts, lens)
-            t0 = time.perf_counter()
-            want = kernels.bucket_accumulate_plain(gs, pts, starts, lens)
-            ctx.sync()
-            plain_ms = (time.perf_counter() - t0) * 1e3
-            err = int((got.long() - want.long()).abs().max())
-            if err != 0:
-                raise AssertionError(f"K2 {curve_name} G{group}: kernel != plain (max |err| {err})")
-            ms = ctx.time_ms(lambda: kernels.bucket_accumulate(gs, pts, starts, lens), 3)
-            W_, B2 = starts.shape
-            adds = int(lens.sum())  # mixed adds this data needs
-            nbytes = 4 * (pts.numel() + starts.numel() + lens.numel() + got.numel())
-            bms, bby = _k2_bound(gs, adds, nbytes, False)
-            row = {"curve": curve_name, "group": group, "points": n, "c": c, "windows": W_,
-                   "buckets": B2, "max_run": int(lens.max()), "mixed_adds": adds,
-                   "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
-                   "bound_by": bby}
-            rows.append(row)
-            log(f"[3] K2 bucket_accumulate {curve_name} G{group} 2^{logn} points c={c} "
-                f"({W_}x{B2} runs, longest {row['max_run']}, {adds} mixed adds): "
-                f"bit-identical projective buckets; kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, "
-                f"bound {bms:.4f} ms ({bby})")
-            del pts, got, want
+    for curve_name, group, logn, c in shapes:
+        gs, pts, starts, lens = _k2_inputs(ctx, curve_name, group, logn, c)
+        got = kernels.bucket_accumulate(gs, pts, starts, lens)
+        t0 = time.perf_counter()
+        want = kernels.bucket_accumulate_plain(gs, pts, starts, lens, chunk=T)
+        ctx.sync()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = int((got.long() - want.long()).abs().max())
+        if err != 0:
+            raise AssertionError(f"K2 {curve_name} G{group} 2^{logn}: kernel != chunked plain "
+                                 f"(max |err| {err})")
+        ms = ctx.time_ms(lambda: kernels.bucket_accumulate(gs, pts, starts, lens), 3)
+        W_, B2 = starts.shape
+        adds = int(lens.sum())  # mixed adds this data needs
+        chunks = int(((lens.long() + T - 1) // T).sum())
+        nbytes = 4 * (pts.numel() + starts.numel() + lens.numel() + got.numel())
+        bms, bby = _k2_bound(gs, adds, nbytes, False)
+        row = {"curve": curve_name, "group": group, "points": 1 << logn, "c": c,
+               "windows": W_, "buckets": B2, "max_run": int(lens.max()), "mixed_adds": adds,
+               "chunk": T, "chunks": chunks, "max_abs_err": err, "ms": ms,
+               "plain_ms": plain_ms, "bound_ms": bms, "bound_by": bby}
+        if not rows:
+            row["cuda_launches_per_call"] = _cuda_launches(
+                ctx, lambda: kernels.bucket_accumulate(gs, pts, starts, lens))
+        rows.append(row)
+        log(f"[3] K2 bucket_accumulate {curve_name} G{group} 2^{logn} points c={c} "
+            f"({W_}x{B2} runs, longest {row['max_run']}, {adds} mixed adds; T = {T}, "
+            f"{chunks} chunks): bit-identical to the chunked plain version; kernel {ms:.3f} ms, "
+            f"plain {plain_ms:.1f} ms, bound {bms:.4f} ms ({bby})"
+            + ("" if "cuda_launches_per_call" not in row else
+               f"; {row['cuda_launches_per_call'] or 'not measured:'} CUDA launches a call"))
+        del pts, got, want
     ctx.detail["k2"] = rows
     ctx.kernels["bucket_accumulate"] = rows[0]
 
 
 def _k2_bound(gs, adds, nbytes, mma):
     """K2's and K2m's bound: the mixed adds this data needs, 13 products
-    each (39 for G2's Karatsuba Fq2). A CIOS product is cios_imads words;
-    K2m's is the 2 NW^2 schoolbook multiply-adds and 3 NB^2 tensor-core
-    MACs (6 NB^2 operations)."""
+    each (39 for G2's Karatsuba Fq2). K2 makes the two products by 3b
+    additions where 3b is a small integer (GroupSpec.b3_small: G1 of both
+    curves, BLS12-381's G2), so it needs 11 (33) there. A CIOS product is
+    cios_imads words; K2m's is the 2 NW^2 schoolbook multiply-adds and
+    3 NB^2 tensor-core MACs (6 NB^2 operations)."""
     nw = gs.fs.nl // 2
-    prods = adds * 13 * (1 if gs.group == 1 else 3)
+    per_add = 11 if not mma and gs.b3_small() else 13
+    prods = adds * per_add * (1 if gs.group == 1 else 3)
     if not mma:
         return bound(nbytes, [(prods * cios_imads(nw), IMAD_OPS_S)])
     nb = 4 * nw
@@ -386,23 +421,16 @@ def _k2_bound(gs, adds, nbytes, mma):
 
 
 def phase_k2m(ctx):
+    """K2m against its plain version and the rank-order plain K2, limb for
+    limb, and against K2 as points (K2 sums in chunks, K2m in rank order),
+    timed in turns with K2."""
     from zksnake_tpu_torch.backend import kernels
-    from zksnake_tpu_torch.backend.curve_ops import get_group_spec
-    from zksnake_tpu_torch.backend.msm import scalars_to_device, sort_by_digit
-    from zksnake_tpu_torch.curves import get_curve_module
 
     logn, c = (PROVE_LOGN, 11) if not ctx.rehearse else (9, 7)
-    n = 1 << logn
     rows = []
     for curve_name in K2_CURVES:
-        cm = get_curve_module(curve_name, ctx.device)
-        curve = cm._curve
-        rng = random.Random(0x2B)
         for group in (1, 2):
-            gs = get_group_spec(curve, group)
-            P, _ = _tiled_points(gs, cm, n, ctx.device)
-            s = scalars_to_device([rng.randrange(curve.r) for _ in range(n)], curve.r, ctx.device)
-            pts, starts, lens, _, _ = sort_by_digit(gs, P, s, c)
+            gs, pts, starts, lens = _k2_inputs(ctx, curve_name, group, logn, c)
             got = kernels.bucket_accumulate_mma(gs, pts, starts, lens)
             k2 = kernels.bucket_accumulate(gs, pts, starts, lens)
             t0 = time.perf_counter()
@@ -412,8 +440,11 @@ def phase_k2m(ctx):
             err = int((got.long() - want.long()).abs().max())
             if err != 0:
                 raise AssertionError(f"K2m {curve_name} G{group}: kernel != plain (max |err| {err})")
-            if not ctx.torch.equal(got, k2):
-                raise AssertionError(f"K2m {curve_name} G{group}: kernel != K2")
+            if not ctx.torch.equal(got, kernels.bucket_accumulate_plain(gs, pts, starts, lens)):
+                raise AssertionError(f"K2m {curve_name} G{group}: kernel != rank-order plain K2")
+            as_points = lambda t: gs.unflatten(list(t.reshape(t.shape[0], gs.fs.nl, -1)))  # noqa: E731
+            if not bool(gs.plain().equal(as_points(got), as_points(k2)).all()):
+                raise AssertionError(f"K2m {curve_name} G{group}: not K2's points")
             # in turns, in one call: K2m, K2, K2, K2m
             runs = {"k2m": lambda: kernels.bucket_accumulate_mma(gs, pts, starts, lens),
                     "k2": lambda: kernels.bucket_accumulate(gs, pts, starts, lens)}
@@ -423,15 +454,15 @@ def phase_k2m(ctx):
             adds = int(lens.sum())
             nbytes = 4 * (pts.numel() + starts.numel() + lens.numel() + got.numel())
             bms, bby = _k2_bound(gs, adds, nbytes, True)
-            row = {"curve": curve_name, "group": group, "points": n, "c": c, "windows": W_,
-                   "buckets": B2, "max_run": int(lens.max()), "mixed_adds": adds,
+            row = {"curve": curve_name, "group": group, "points": 1 << logn, "c": c,
+                   "windows": W_, "buckets": B2, "max_run": int(lens.max()), "mixed_adds": adds,
                    "max_abs_err": err, "ms": ms, "k2_ms": k2_ms, "turns_ms": turns,
                    "plain_ms": plain_ms, "bound_ms": bms, "bound_by": bby}
             rows.append(row)
             log(f"[4] K2m bucket_accumulate_mma {curve_name} G{group} 2^{logn} points c={c}: "
-                f"bit-identical to plain and K2; K2m {ms:.3f} ms, K2 {k2_ms:.3f} ms (turns "
-                + " ".join(f"{t:.3f}" for t in turns) + f"), plain {plain_ms:.1f} ms, "
-                f"bound {bms:.4f} ms ({bby})")
+                f"bit-identical to plain and to the rank-order plain K2, K2's points; K2m "
+                f"{ms:.3f} ms, K2 {k2_ms:.3f} ms (turns " + " ".join(f"{t:.3f}" for t in turns)
+                + f"), plain {plain_ms:.1f} ms, bound {bms:.4f} ms ({bby})")
             del pts, got, want, k2
     ctx.detail["k2m"] = rows
     ctx.kernels["bucket_accumulate_mma"] = rows[0]
@@ -881,23 +912,28 @@ def phase_relayout(ctx):
         err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
         if err != 0:
             raise AssertionError(f"{name} ({stage}): kernel != plain (max |err| {err})")
-        ms = ctx.time_ms(lambda: st.run(*st.args), 20)
         plain_ms = ctx.time_ms(lambda: plain(*st.args), 3)
-        libs = []
-        for expr, fn in _library_calls(name, st.args):
+        calls = _library_calls(name, st.args)
+        for expr, fn in calls:
             if not torch.equal(fn(), want):
                 raise AssertionError(f"{name}: the library call {expr} computes another function")
-            libs.append((ctx.time_ms(fn, 20), expr))
-        lib_ms, lib = min(libs)
+        # the fastest library call, then the kernel and it in turns, in one
+        # call: kernel, library, library, kernel
+        libs = {expr: ctx.time_ms(fn, 20) for expr, fn in calls}
+        lib = min(libs, key=libs.get)
+        run = lambda: st.run(*st.args)  # noqa: E731
+        turns = [ctx.time_ms(f, 20) for f in (run, dict(calls)[lib], dict(calls)[lib], run)]
+        ms, lib_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
         bms, bby = _relayout_bound(name, st.args, got)
         rows[name] = {"stage": stage, "shape_in": [list(a.shape) for a in st.args if hasattr(a, "shape")],
                       "shape_out": list(got.shape), "max_abs_err": err, "ms": ms,
                       "plain_ms": plain_ms, "bound_ms": bms, "bound_by": bby,
-                      "library_ms": lib_ms, "library": lib,
-                      "library_all": {e: t for t, e in libs}}
+                      "library_ms": lib_ms, "library": lib, "library_all": libs,
+                      "turns_ms": turns}
         log(f"[13] {name} ({stage}) {rows[name]['shape_in']} -> {list(got.shape)}: bit-identical "
-            f"to plain; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms "
-            f"({lib}), bound {bms:.4f} ms ({bby})")
+            f"to plain; kernel {ms:.4f} ms, library {lib_ms:.4f} ms ({lib}) in turns ("
+            + " ".join(f"{t:.4f}" for t in turns) + f"), plain {plain_ms:.4f} ms, "
+            f"bound {bms:.4f} ms ({bby})")
         del st, got, want
     ctx.detail["relayout"] = {"stages": stages, "kernels": rows}
     ctx.kernels.update(rows)

@@ -7,7 +7,8 @@ the card:
     python -m pytest tests/test_torch_kernels_cuda.py -q
 
 K1, K2 and K2m (16- and 24-limb builds) and K3 must match their plain versions limb
-for limb (integer field arithmetic has no tolerance), and so must the relayout
+for limb (integer field arithmetic has no tolerance; K2 its chunked plain
+version, K2m its rank-order one), and so must the relayout
 kernels S1-S8 and the G2 probe S9 on ragged edges (a start of n - 1, R not a
 multiple of 4, planes not a multiple of any tile, all-ones bytes); each
 wrapper must count one launch per call, refuse what its kernel does not take,
@@ -98,7 +99,34 @@ def test_bucket_kernel_matches_plain(card, curve, group):
     got = kernels.bucket_accumulate(gs, pts, starts, lens)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["bucket_accumulate"] == before + 1
-    assert torch.equal(got, kernels.bucket_accumulate_plain(gs, pts, starts, lens))
+    want = kernels.bucket_accumulate_plain(gs, pts, starts, lens, chunk=kernels.K2_CHUNK)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("curve", ["BN254", "BLS12_381"])
+@pytest.mark.parametrize("group", [1, 2])
+def test_bucket_kernel_chunks_match_plain_at_the_edges(card, curve, group):
+    """K2 against its chunked plain version, limb for limb, where the chunk
+    table is ragged: a run of 2100 points (more than one block's chunks), a
+    block whose chunks run from window 0 through window 1 into window 2,
+    runs of 1, T, T + 1 and 2T + 1 points, empty buckets and an empty
+    window. The operands are random canonical field elements: the formulas
+    are the same arithmetic whether or not they are points."""
+    T = kernels.K2_CHUNK
+    gs = get_group_spec(get_curve_module(curve, card)._curve, group)
+    run_lens = [[0, 2100, 1, T + 1, 0, T, 2 * T + 1, 100],
+                [3, 0, T, 15, 40, 1, 0, 2], [0] * 8]
+    n, lead = 2304, 5
+    lens = torch.tensor(run_lens, dtype=torch.int32)
+    starts = lead + torch.cumsum(lens, 1, dtype=torch.int32) - lens
+    L = 2 * group
+    planes = random_elems(gs.fs, L * 3 * n, 60 + group).reshape(gs.fs.nl, L, 3, n)
+    pts = planes.permute(1, 0, 2, 3).contiguous().to(card)
+    got = kernels.bucket_accumulate(gs, pts, starts.to(card), lens.to(card))
+    torch.cuda.synchronize()
+    want = kernels.bucket_accumulate_plain(gs, pts, starts.to(card), lens.to(card), chunk=T)
+    assert torch.equal(got, want)
+    assert torch.equal(got[:, :, 2], want[:, :, 2])  # the empty window: identities
 
 
 @pytest.mark.parametrize("curve", ["BN254", "BLS12_381"])
@@ -106,8 +134,10 @@ def test_bucket_kernel_matches_plain(card, curve, group):
 def test_bucket_mma_kernel_matches_plain_and_k2(card, curve, group):
     """K2m on ragged runs (empty buckets in the spread top window, and a
     last block past the final bucket: c = 6 gives 43 x 32 = 1376 lanes, not
-    a multiple of the 64-lane block) against its plain version and against
-    K2, limb for limb."""
+    a multiple of the 64-lane block) against its plain version and the
+    rank-order plain K2, limb for limb, and against K2 as points (K2 sums
+    in chunks, K2m in rank order: other representatives of the same
+    points)."""
     cm = get_curve_module(curve, card)
     gs = get_group_spec(cm._curve, group)
     gen = cm.g1() if group == 1 else cm.g2()
@@ -124,7 +154,10 @@ def test_bucket_mma_kernel_matches_plain_and_k2(card, curve, group):
     assert kernels.LAUNCHES["bucket_accumulate_mma"] == before["bucket_accumulate_mma"] + 1
     assert kernels.LAUNCHES["bucket_accumulate"] == before["bucket_accumulate"]
     assert torch.equal(got, kernels.bucket_accumulate_mma_plain(gs, pts, starts, lens))
-    assert torch.equal(got, kernels.bucket_accumulate(gs, pts, starts, lens))
+    assert torch.equal(got, kernels.bucket_accumulate_plain(gs, pts, starts, lens))
+    k2 = kernels.bucket_accumulate(gs, pts, starts, lens)
+    as_points = lambda t: gs.unflatten(list(t.reshape(t.shape[0], gs.fs.nl, -1)))  # noqa: E731
+    assert bool(gs.plain().equal(as_points(got), as_points(k2)).all())
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(card):
@@ -270,6 +303,21 @@ def test_relayout_2d_kernels_match_plain(card, name, shape):
     torch.cuda.synchronize()
     assert kernels.LAUNCHES[name] == before + 1
     assert torch.equal(got.cpu(), plain(x))
+
+
+@pytest.mark.parametrize("shape", [(1, 4), (3, 5), (33, 132), (70, 301), (129, 2048),
+                                   (4100, 260)])
+def test_copy_tile_matches_plain_on_ragged_shapes(card, shape):
+    """S4's TMA tiles at the array's edge in both directions (33 x 132, 4100
+    x 260), a grid of more tiles than blocks (4100 x 260), and rows of 5 or
+    301 words (a byte stride TMA cannot take: the kernel's 16-byte path and
+    its word tail)."""
+    x = u32_planes(shape, 7)
+    before = kernels.LAUNCHES["copy_tile"]
+    got = relayout.copy_tile(x.to(card))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["copy_tile"] == before + 1
+    assert torch.equal(got.cpu(), relayout.copy_plain(x))
 
 
 @pytest.mark.parametrize("variant", sorted(kernels.G2_BLOCK_VARIANTS))

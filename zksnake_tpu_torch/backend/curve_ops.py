@@ -188,6 +188,13 @@ class GroupSpec:
     def b3(self, device):
         return self.F.const(self._b3_val, device)
 
+    def b3_small(self):
+        """3b as a small integer k where it is one (G1: 3b = k; G2: 3b =
+        k + k u), else 0: K2 then multiplies by 3b with additions."""
+        v = self._b3_val
+        k = v if self.group == 1 else (v[0] if v[0] == v[1] else 0)
+        return k if 0 < k < 64 else 0
+
     def b3_words(self):
         """ctypes uint32 words of 3b in Montgomery form, for K2."""
         if self._b3_words is None:
@@ -332,6 +339,27 @@ class GroupSpec:
 
     def select(self, cond, P, Q):
         return tuple(self.F.select(cond, a, b) for a, b in zip(P, Q))
+
+    def equal(self, P, Q):
+        """Lane mask: P and Q are the same point, X1 Z2 = X2 Z1 and
+        Y1 Z2 = Y2 Z1, both or neither at infinity (Z = 0), and neither
+        (0 : 0 : 0), which is no point (for points on the curve; products
+        are canonical, so equal elements have equal limbs)."""
+        X1, Y1, Z1 = P
+        X2, Y2, Z2 = Q
+        a, b, c, d = self.F.mul_many([(X1, Z2), (X2, Z1), (Y1, Z2), (Y2, Z1)])
+
+        def same(u, v):
+            parts = zip(u, v) if self.group == 2 else [(u, v)]
+            return torch.stack([(x == y).all(0) for x, y in parts]).all(0)
+
+        def zero(u):
+            parts = u if self.group == 2 else (u,)
+            return torch.stack([(x == 0).all(0) for x in parts]).all(0)
+
+        some1 = ~(zero(X1) & zero(Y1) & zero(Z1))
+        some2 = ~(zero(X2) & zero(Y2) & zero(Z2))
+        return same(a, b) & same(c, d) & (zero(Z1) == zero(Z2)) & some1 & some2
 
     # ---------- host <-> device conversion ----------
     def _batch_affine(self, points):

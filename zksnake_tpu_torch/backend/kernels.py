@@ -46,6 +46,12 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+# K2's chunk length T and fold lanes G, the constants of csrc/bucket.cu:
+# every run is summed in chunks of at most T consecutive points, then each
+# bucket's chunks are folded by G lanes: contiguous segments in chunk order,
+# then a pairwise tree (scripts/k2_chunk_sweep.py measures other values)
+K2_CHUNK = 8
+K2_FOLD_LANES = 4
 # library -> (source, extra nvcc flags); K2 and K2m are built once per limb
 # count
 _SOURCES = {
@@ -133,6 +139,40 @@ def build(names=None):
     return times
 
 
+def ptxas_report(name):
+    """[(kernel, registers, spill store bytes)] of library `name`, from its
+    nvcc -Xptxas -v log; a kernel is named by its identifier and, for the
+    field templates, Fp or Fp2 (G1 or G2)."""
+    import re
+
+    path = os.path.join(BUILD_DIR, f"{name}.ptxas.txt")
+    if not os.path.exists(path):
+        return []
+    rows, kernel, spills = [], None, 0
+    with open(path) as f:
+        for line in f:
+            m = re.search(r"Compiling entry function '([^']+)'", line)
+            if m:
+                mangled = m.group(1)  # _Z[N] then length-prefixed names
+                i, idents = 3 if mangled.startswith("_ZN") else 2, []
+                while (j := re.match(r"\d+", mangled[i:])):
+                    i += j.end()
+                    idents.append(mangled[i:i + int(j.group())])
+                    i += int(j.group())
+                ident = idents[-1] if idents else mangled
+                field = "Fp2" if "Fp2I" in mangled else "Fp" if "FpI" in mangled else ""
+                kernel = ident + (f"<{field}>" if field else "")
+                spills = 0
+            m = re.search(r"(\d+) bytes spill stores", line)
+            if m:
+                spills = int(m.group(1))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and kernel:
+                rows.append((kernel, int(m.group(1)), spills))
+                kernel = None
+    return rows
+
+
 def _lib(name):
     with _LOCK:
         if name not in _LIBS:
@@ -149,11 +189,11 @@ def _lib(name):
                 lib.zk_mont_mul_mma.restype = i
             elif name == "relayout":
                 lib.zk_expand.argtypes = [vp, ll, ll, i, i, vp, i, ll, vp, vp]
-                lib.zk_tile32.argtypes = [vp, vp, i, i, i, vp]
-                for fn in (lib.zk_expand, lib.zk_tile32, lib.zk_transpose_fat,
+                for fn in (lib.zk_expand, lib.zk_tile32, lib.zk_copy_tma, lib.zk_transpose_fat,
                            lib.zk_transpose_flat, lib.zk_transpose_mma):
                     fn.restype = i
-                for fn in (lib.zk_transpose_fat, lib.zk_transpose_flat, lib.zk_transpose_mma):
+                for fn in (lib.zk_tile32, lib.zk_copy_tma, lib.zk_transpose_fat,
+                           lib.zk_transpose_flat, lib.zk_transpose_mma):
                     fn.argtypes = [vp, vp, i, i, vp]
             elif name == "g2_block":
                 lib.zk_g2_block.argtypes = [i, vp, i, vp, i, ll, i, vp, u32, vp, vp, vp]
@@ -165,7 +205,7 @@ def _lib(name):
                 lib.zk_bucket_accumulate_mma.restype = i
             else:
                 lib.zk_bucket_accumulate.argtypes = [
-                    vp, vp, vp, vp, i, i, i, i, ll, vp, u32, vp, vp, vp
+                    vp, vp, vp, vp, vp, vp, i, i, i, i, ll, ll, vp, u32, vp, vp, i, vp
                 ]
                 lib.zk_bucket_accumulate.restype = i
             _LIBS[name] = lib
@@ -376,37 +416,88 @@ def mont_mul_mma(fs, a, b):
 # -------------------------------------------------------------------- K2 --
 
 
-def bucket_accumulate_plain(gs, pts, starts, lens, mode=True):
-    """Plain version of K2 on any device: the per-round mixed add of
-    zksnake_tpu/backend/msm.py:370-390 on torch. Round k adds the rank-k
-    point of every run into its bucket, in rank order like the kernel; the
-    round runs only over the runs that still have a rank-k point, which is
-    the JAX loop's mask applied by gathering the live lanes. `mode` picks
-    the field product (GroupSpec.plain): True K1's plain version, "mma"
-    K3's.
+def _run_sums(gs, rows, base, lens):
+    """Sum each run of points of `rows` (L, nl, W n) from the identity, in
+    rank order: run i is slots base[i] .. base[i] + lens[i] - 1. Round k
+    adds the rank-k point of every run that still has one, which is the
+    JAX loop's mask (zksnake_tpu/backend/msm.py:370-390) applied by
+    gathering the live lanes. Returns (3|6, nl, len(base))."""
+    acc = torch.stack(gs.leaves(gs.identity((base.numel(),), rows.device)))
+    maxrun = int(lens.max()) if lens.numel() else 0
+    for k in range(maxrun):
+        live = torch.nonzero(lens > k).squeeze(1)
+        Q = gs.unflatten(list(rows[:, :, base[live] + k]))
+        P = gs.unflatten(list(acc[:, :, live]))
+        acc[:, :, live] = torch.stack(gs.leaves(gs.add_affine(P, Q)))
+    return acc
+
+
+def bucket_accumulate_plain(gs, pts, starts, lens, mode=True, chunk=None):
+    """Plain version of K2 on any device. `chunk=None` sums every run in
+    rank order (the JAX package's per-round loop, zksnake_tpu/backend/
+    msm.py:370-390); `chunk=T` follows K2's order (csrc/bucket.cu): each
+    run cut into ceil(len / T) chunks of T consecutive points from its
+    start, each chunk summed from the identity in rank order, then each
+    bucket's m chunk partials folded by G = K2_FOLD_LANES lanes with the
+    complete projective add: lane j folds chunks
+    j s .. min(m, (j + 1) s) - 1, s = ceil(m / G), in order, then lane j
+    adds lane j + d for d = 1, 2, 4, ... (j a multiple of 2d, lane j + d
+    not empty). A bucket with one chunk keeps its partial. Both orders give
+    the same points; with every run at most T long, the same limbs. `mode`
+    picks the field product (GroupSpec.plain): True K1's plain version,
+    "mma" K3's.
 
     pts: (L, nl, W, n) sorted planes (K2's input layout); starts, lens:
     (W, B2) int32. Returns the (3 or 6, nl, W, B2) projective bucket sums."""
     gs = gs.plain(mode)
     L, nl, Wn, n = pts.shape
     B2 = starts.shape[1]
-    acc = torch.stack(gs.leaves(gs.identity((Wn * B2,), pts.device)))  # (3|6, nl, W*B2)
-    starts = starts.reshape(-1).long()
-    lens = lens.reshape(-1)
+    dev = pts.device
+    nb = Wn * B2
+    lens = lens.reshape(-1).long()
     rows = pts.reshape(L, nl, Wn * n)
-    maxrun = int(lens.max()) if lens.numel() else 0
-    for k in range(maxrun):
-        live = torch.nonzero(lens > k).squeeze(1)
-        src = (live // B2) * n + starts[live] + k  # (w, rank-k slot) in rows
-        Q = gs.unflatten(list(rows[:, :, src]))
+    base = (torch.arange(nb, device=dev) // B2) * n + starts.reshape(-1).long()
+    if chunk is None:
+        return _run_sums(gs, rows, base, lens).reshape(-1, nl, Wn, B2)
+    G = K2_FOLD_LANES
+    nch = (lens + chunk - 1) // chunk
+    first = torch.cumsum(nch, 0) - nch  # each bucket's first chunk
+    owner = torch.repeat_interleave(torch.arange(nb, device=dev), nch)  # chunk -> bucket
+    rank = (torch.arange(owner.numel(), device=dev) - first[owner]) * chunk
+    part = _run_sums(gs, rows, base[owner] + rank,
+                     torch.clamp(lens[owner] - rank, max=chunk))
+    # lane (b, j) folds its segment of bucket b's chunks
+    s = (nch + G - 1) // G
+    j = torch.arange(G, device=dev)
+    lo = (j[None] * s[:, None]).reshape(-1)
+    seg = torch.clamp(nch.repeat_interleave(G) - lo, 0, None).minimum(s.repeat_interleave(G))
+    fst = first.repeat_interleave(G) + lo
+    acc = torch.stack(gs.leaves(gs.identity((nb * G,), dev)))
+    some = torch.nonzero(seg > 0).squeeze(1)
+    acc[:, :, some] = part[:, :, fst[some]]
+    for k in range(1, int(seg.max()) if seg.numel() else 0):
+        live = torch.nonzero(seg > k).squeeze(1)
         P = gs.unflatten(list(acc[:, :, live]))
-        acc[:, :, live] = torch.stack(gs.leaves(gs.add_affine(P, Q)))
-    return acc.reshape(-1, nl, Wn, B2)
+        Q = gs.unflatten(list(part[:, :, fst[live] + k]))
+        acc[:, :, live] = torch.stack(gs.leaves(gs.add(P, Q)))
+    # the tree over the G lanes of each bucket
+    acc = acc.reshape(acc.shape[0], nl, nb, G)
+    d = 1
+    while d < G:
+        jj = torch.arange(0, G - d, 2 * d, device=dev)
+        pair = (jj[None] + d) * s[:, None] < nch[:, None]  # (nb, pairs): lane j + d not empty
+        bi, pi = torch.nonzero(pair, as_tuple=True)
+        P = gs.unflatten(list(acc[:, :, bi, jj[pi]]))
+        Q = gs.unflatten(list(acc[:, :, bi, jj[pi] + d]))
+        acc[:, :, bi, jj[pi]] = torch.stack(gs.leaves(gs.add(P, Q)))
+        d *= 2
+    return acc[..., 0].reshape(-1, nl, Wn, B2)
 
 
 def bucket_accumulate_mma_plain(gs, pts, starts, lens):
-    """Plain version of K2m on any device: K2's plain version with every
-    field product through mont_mul_mma_plain (K3's plain version)."""
+    """Plain version of K2m on any device: K2's rank-order plain version
+    (K2m walks each run in rank order) with every field product through
+    mont_mul_mma_plain (K3's plain version)."""
     return bucket_accumulate_plain(gs, pts, starts, lens, mode="mma")
 
 
@@ -427,19 +518,25 @@ def _bucket_launch(gs, pts, starts, lens, mma):
         raise ValueError(f"{name}: starts shape {tuple(starts.shape)}")
     B2 = starts.shape[1]
     out = torch.empty((3 * gs.group, nl, Wn, B2), dtype=torch.int32, device=dev)
-    args = [
-        pts.data_ptr(), starts.data_ptr(), lens.data_ptr(), out.data_ptr(),
-        nl, gs.group, Wn, B2, n,
-        ctypes.addressof(fs.words("p")), fs.pinv32,
-        ctypes.addressof(fs.words("one")), ctypes.addressof(gs.b3_words()),
-    ]
+    consts = [ctypes.addressof(fs.words("p")), fs.pinv32,
+              ctypes.addressof(fs.words("one")), ctypes.addressof(gs.b3_words())]
     if mma:
-        lib = _lib(f"bucket_mma{nl}")
-        fn = lib.zk_bucket_accumulate_mma
-        args.append(fs.mma_tiles(dev).data_ptr())
+        fn = _lib(f"bucket_mma{nl}").zk_bucket_accumulate_mma
+        args = [pts.data_ptr(), starts.data_ptr(), lens.data_ptr(), out.data_ptr(),
+                nl, gs.group, Wn, B2, n, *consts, fs.mma_tiles(dev).data_ptr()]
     else:
-        lib = _lib(f"bucket{nl}")
-        fn = lib.zk_bucket_accumulate
+        # the chunk table (ceil(len / T) chunks a bucket, inclusive prefix
+        # sum) and scratch for the chunk partials, sized by the most chunks
+        # these shapes can have, so nothing waits for the card
+        T = K2_CHUNK
+        coff = torch.cumsum(torch.div(lens.reshape(-1) + (T - 1), T, rounding_mode="floor"),
+                            0, dtype=torch.int32)
+        cmax = (Wn * n + (T - 1) * Wn * B2) // T
+        part = torch.empty((3 * gs.group, nl, cmax), dtype=torch.int32, device=dev)
+        fn = _lib(f"bucket{nl}").zk_bucket_accumulate
+        args = [pts.data_ptr(), starts.data_ptr(), lens.data_ptr(), coff.data_ptr(),
+                part.data_ptr(), out.data_ptr(), nl, gs.group, Wn, B2, n, cmax, *consts,
+                gs.b3_small()]
     with torch.cuda.device(dev):
         rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
     LAUNCHES[name] += 1
@@ -448,10 +545,11 @@ def _bucket_launch(gs, pts, starts, lens, mma):
 
 
 def bucket_accumulate(gs, pts, starts, lens):
-    """K2 on CUDA, its plain version on the CPU (layouts as above)."""
+    """K2 on CUDA, its chunked plain version (chunk=K2_CHUNK) on the CPU
+    (layouts as above)."""
     dev = _device_of(pts, starts, lens)
     if dev.type == "cpu":
-        return bucket_accumulate_plain(gs, pts, starts, lens)
+        return bucket_accumulate_plain(gs, pts, starts, lens, chunk=K2_CHUNK)
     if dev.type != "cuda":
         raise ValueError(f"bucket_accumulate: unsupported device {dev}")
     return _bucket_launch(gs, pts, starts, lens, mma=False)

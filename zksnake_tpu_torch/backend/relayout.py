@@ -9,7 +9,7 @@ csrc/relayout.cu). Planes are int32 tensors holding the u32 words' bits.
   S7 expand_rows_pm  stage_expand_dma_pm  the same function (its own counter)
   S3 expand_cols     stage_expand_dma   out[b] = x[:, starts[b] : starts[b] + R]
   S2 transpose_tile  stage_tkernel      x.T through 32 x 32 shared tiles
-  S4 copy_tile       stage_tk_copy      x, on S2's grid and tiles
+  S4 copy_tile       stage_tk_copy      x, tile by tile through shared memory by TMA
   S5 transpose_fat   stage_tk_fat       x.T in 64 x 64 tiles, 16 bytes a thread
   S6 transpose_mma   stage_tk_mxu       x.T on the tensor cores (u8 planes x I)
   S8 transpose_flat  stage_tk_flat      x.T for skinny (rows, M), whole output rows
@@ -122,7 +122,7 @@ def expand_cols(x, starts, R):
     return out
 
 
-def _relayout2d(name, x, plain, entry, transpose, *extra):
+def _relayout2d(name, x, plain, entry, transpose):
     dev = _on_card(name, (x,))
     if dev is None:
         return plain(x)
@@ -131,18 +131,18 @@ def _relayout2d(name, x, plain, entry, transpose, *extra):
     rows, cols = x.shape
     out = torch.empty((cols, rows) if transpose else (rows, cols), dtype=torch.int32, device=dev)
     _launch(name, dev, getattr(kernels._lib("relayout"), entry), x.data_ptr(), out.data_ptr(),
-            rows, cols, *extra)
+            rows, cols)
     return out
 
 
 def transpose_tile(x):
     """S2 (stage_tkernel) on CUDA, its plain version on the CPU."""
-    return _relayout2d("transpose_tile", x, transpose_plain, "zk_tile32", True, 1)
+    return _relayout2d("transpose_tile", x, transpose_plain, "zk_tile32", True)
 
 
 def copy_tile(x):
     """S4 (stage_tk_copy) on CUDA, its plain version on the CPU."""
-    return _relayout2d("copy_tile", x, copy_plain, "zk_tile32", False, 0)
+    return _relayout2d("copy_tile", x, copy_plain, "zk_copy_tma", False)
 
 
 def transpose_fat(x):

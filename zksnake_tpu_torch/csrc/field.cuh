@@ -182,6 +182,42 @@ __device__ __forceinline__ Fp2<NW> fsub(const Fp2<NW>& x, const Fp2<NW>& y,
   return r;
 }
 
+// 3b as a small integer K (G1: 3b = K; G2: 3b = K + K u). A product with
+// it is doublings and additions: the same field element as the product
+// with 3b in Montgomery form, for a fraction of a product's work.
+template <int K>
+struct SmallB3 {};
+
+__host__ __device__ constexpr int top_bit(int k) { return k > 1 ? 1 + top_bit(k >> 1) : 0; }
+
+template <int K, int NW>
+__device__ __forceinline__ Fp<NW> fmul_small(const Fp<NW>& x, const FieldParams<NW>& P) {
+  static_assert(K > 0, "a positive multiplier");
+  Fp<NW> r = x;
+#pragma unroll
+  for (int bit = top_bit(K) - 1; bit >= 0; --bit) {
+    r = fadd(r, r, P);
+    if ((K >> bit) & 1) r = fadd(r, x, P);
+  }
+  return r;
+}
+
+template <int NW, class M, int K>
+__device__ __forceinline__ Fp<NW> fmul_with(const SmallB3<K>&, const Fp<NW>& x,
+                                            const FieldParams<NW>& P, const M&) {
+  return fmul_small<K>(x, P);
+}
+
+// (K + K u)(a + b u) = K (a - b) + K (a + b) u
+template <int NW, class M, int K>
+__device__ __forceinline__ Fp2<NW> fmul_with(const SmallB3<K>&, const Fp2<NW>& x,
+                                             const FieldParams<NW>& P, const M&) {
+  Fp2<NW> r;
+  r.a = fmul_small<K>(fsub(x.a, x.b, P), P);
+  r.b = fmul_small<K>(fadd(x.a, x.b, P), P);
+  return r;
+}
+
 // ------------------------------------------------- limb-plane loads ------
 
 // Element `idx` of a limbs-first plane with `stride` elements between limbs.
@@ -213,10 +249,11 @@ __device__ __forceinline__ void store_limbs(int32_t* plane, int64_t stride,
 // Complete mixed addition, RCB15 Algorithm 8 with a = 0: (X1:Y1:Z1) += (X2, Y2)
 // with Z2 = 1. The same formula as GroupSpec.add_affine, so every output
 // coordinate is the same field element. (X2, Y2) must not be the identity.
-// Every field product goes through `mul` (13 of them).
-template <class F, int NW, class M>
+// Every field product goes through `mul` (13 of them; the two with 3b are
+// additions where b3 is a SmallB3).
+template <class F, int NW, class M, class B>
 __device__ __forceinline__ void add_affine_with(F& X1, F& Y1, F& Z1, const F& X2,
-                                                const F& Y2, const F& b3,
+                                                const F& Y2, const B& b3,
                                                 const FieldParams<NW>& P, const M& mul) {
   const F t0 = fmul_with(X1, X2, P, mul);
   const F t1 = fmul_with(Y1, Y2, P, mul);
@@ -236,11 +273,35 @@ __device__ __forceinline__ void add_affine_with(F& X1, F& Y1, F& Z1, const F& X2
   Z1 = fadd(fmul_with(z3s, t4, P, mul), fmul_with(t0_3, t3, P, mul), P);
 }
 
-template <class F, int NW>
+template <class F, int NW, class B>
 __device__ __forceinline__ void add_affine(F& X1, F& Y1, F& Z1, const F& X2,
-                                           const F& Y2, const F& b3,
+                                           const F& Y2, const B& b3,
                                            const FieldParams<NW>& P) {
   add_affine_with<F, NW>(X1, Y1, Z1, X2, Y2, b3, P, CiosMul<NW>{P});
+}
+
+// Complete projective addition, RCB15 Algorithm 7 with a = 0:
+// (X1:Y1:Z1) += (X2:Y2:Z2). The formula of GroupSpec.add, so every output
+// coordinate is the same field element; 14 CIOS products (12 where b3 is a
+// SmallB3).
+template <class F, int NW, class B>
+__device__ __forceinline__ void add_proj(F& X1, F& Y1, F& Z1, const F& X2, const F& Y2,
+                                         const F& Z2, const B& b3, const FieldParams<NW>& P) {
+  const CiosMul<NW> mul{P};
+  const F t0 = fmul_with(X1, X2, P, mul);
+  const F t1 = fmul_with(Y1, Y2, P, mul);
+  const F t2 = fmul_with(Z1, Z2, P, mul);
+  const F t3 = fsub(fmul_with(fadd(X1, Y1, P), fadd(X2, Y2, P), P, mul), fadd(t0, t1, P), P);
+  const F t4 = fsub(fmul_with(fadd(Y1, Z1, P), fadd(Y2, Z2, P), P, mul), fadd(t1, t2, P), P);
+  const F t5 = fsub(fmul_with(fadd(X1, Z1, P), fadd(X2, Z2, P), P, mul), fadd(t0, t2, P), P);
+  const F t0_3 = fadd(fadd(t0, t0, P), t0, P);
+  const F t2b = fmul_with(b3, t2, P, mul);
+  const F y3p = fmul_with(b3, t5, P, mul);
+  const F z3s = fadd(t1, t2b, P);
+  const F t1m = fsub(t1, t2b, P);
+  X1 = fsub(fmul_with(t3, t1m, P, mul), fmul_with(t4, y3p, P, mul), P);
+  Y1 = fadd(fmul_with(y3p, t0_3, P, mul), fmul_with(t1m, z3s, P, mul), P);
+  Z1 = fadd(fmul_with(z3s, t4, P, mul), fmul_with(t0_3, t3, P, mul), P);
 }
 
 // ------------------------------------------------- bucket-kernel helpers --

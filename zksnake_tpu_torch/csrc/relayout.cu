@@ -7,7 +7,7 @@
 //   S7 stage_expand_dma_pm (:398) the same function, by async copies
 //   S3 stage_expand_dma   (:177) out[b] = X[:, start_b : start_b + R]
 //   S2 stage_tkernel      (:139) transpose in (128, 128) tiles
-//   S4 stage_tk_copy      (:279) identity copy on S2's grid
+//   S4 stage_tk_copy      (:279) identity copy, tile by tile (TMA)
 //   S5 stage_tk_fat       (:309) transpose in fat (512, M) blocks
 //   S6 stage_tk_mxu       (:345) transpose through the matrix unit
 //   S8 stage_tk_flat      (:455) skinny (2 nl, M) -> (M, 2 nl) transpose
@@ -21,6 +21,7 @@
 // loads and stores: their asynchronous versions (cp.async.bulk / TMA, the
 // DMA engine the TPU kernels used) are later work.
 
+#include <cuda.h>  // CUtensorMap and its enums only: the driver is reached at run time
 #include <cuda_runtime.h>
 #include <mma.h>
 
@@ -104,13 +105,10 @@ expand_kernel(const int32_t* __restrict__ in, int64_t in_words, int64_t ld, int 
   }
 }
 
-// ---------------------------------------------------------------- S2, S4 --
+// -------------------------------------------------------------------- S2 --
 
 // The classic 32 x 32 shared tile with a padded row (bank-conflict free in
-// both directions), a (32, 8) block, one word a thread a step. S4 keeps the
-// grid, the tile and the barrier and only drops the transposed indexing,
-// so S2 - S4 is the transposition's own cost (the TPU probe's question).
-template <bool TRANSPOSE>
+// both directions), a (32, 8) block, one word a thread a step.
 __global__ void __launch_bounds__(256)
 tile32_kernel(const int32_t* __restrict__ in, int32_t* __restrict__ out, int rows, int cols) {
   __shared__ int32_t tile[32][33];
@@ -123,15 +121,146 @@ tile32_kernel(const int32_t* __restrict__ in, int32_t* __restrict__ out, int row
   }
   __syncthreads();
 #pragma unroll
-  for (int j = ty; j < 32; j += 8) {
-    if (TRANSPOSE) {  // out (cols, rows): out row c0 + j, column r0 + tx
-      const int64_t orow = c0 + j, ocol = r0 + tx;
-      if (orow < cols && ocol < rows) out[orow * rows + ocol] = tile[tx][j];
-    } else {
-      const int64_t r = r0 + j, c = c0 + tx;
-      if (r < rows && c < cols) out[r * cols + c] = tile[j][tx];
+  for (int j = ty; j < 32; j += 8) {  // out (cols, rows): out row c0 + j, column r0 + tx
+    const int64_t orow = c0 + j, ocol = r0 + tx;
+    if (orow < cols && ocol < rows) out[orow * rows + ocol] = tile[tx][j];
+  }
+}
+
+// -------------------------------------------------------------------- S4 --
+
+// The identity copy, tile by tile through shared memory, the way Hopper
+// copies: the Tensor Memory Accelerator (TMA) moves whole (CP_R, CP_C)
+// tiles global -> shared -> global while the block's one issuing thread
+// only hands out coordinates. Each block walks the tiles blockIdx.x,
+// blockIdx.x + gridDim.x, ... through a ring of CP_STAGES tile buffers: the
+// loads run CP_STAGES - 1 tiles ahead (completion on one mbarrier a buffer),
+// each arrived tile is stored back at once (a bulk group a tile), and a
+// buffer is loaded again when its last store has read it. Both carry an L2
+// evict-first hint (each byte passes once) and every block gets the same
+// number of tiles where the grid allows. TMA clips the
+// tiles at the array's edge itself: the loads fill past it with zeros, the
+// stores write nothing past it. Rows whose byte stride TMA cannot take (not
+// a multiple of 16 bytes) take the same kernel's 16-byte path: the array is
+// contiguous, so it is copied as flat 16-byte chunks and a word tail.
+constexpr int CP_R = 32, CP_C = 128, CP_STAGES = 4, CP_THREADS = 128;
+constexpr int CP_BYTES = CP_R * CP_C * 4;  // 16 KB a tile
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__global__ void __launch_bounds__(CP_THREADS)
+copy_kernel(const __grid_constant__ CUtensorMap src, const __grid_constant__ CUtensorMap dst,
+            int use_tma, int tiles_c, int tiles, const int32_t* __restrict__ in,
+            int32_t* __restrict__ out, int64_t words) {
+  extern __shared__ __align__(128) unsigned char buf[];  // CP_STAGES tiles
+  __shared__ __align__(8) uint64_t full[CP_STAGES];
+  if (!use_tma) {
+    const int64_t chunks = words >> 2;
+    const int64_t step = (int64_t)gridDim.x * blockDim.x;
+    for (int64_t q = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; q < chunks; q += step)
+      reinterpret_cast<int4*>(out)[q] = __ldg(reinterpret_cast<const int4*>(in) + q);
+    if (blockIdx.x == 0 && threadIdx.x < (words & 3))
+      out[4 * chunks + threadIdx.x] = __ldg(in + 4 * chunks + threadIdx.x);
+    return;
+  }
+  if (threadIdx.x != 0) return;
+  uint64_t once;  // L2 policy: evict first
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(once));
+  const uint64_t smap = reinterpret_cast<uint64_t>(&src), dmap = reinterpret_cast<uint64_t>(&dst);
+  for (int s = 0; s < CP_STAGES; ++s)
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(&full[s])) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  const int mine = (int)blockIdx.x < tiles ? (tiles - 1 - (int)blockIdx.x) / (int)gridDim.x + 1 : 0;
+  auto coords = [&](int i, int* c, int* r) {
+    const int t = (int)blockIdx.x + i * (int)gridDim.x;
+    *c = (t % tiles_c) * CP_C;
+    *r = (t / tiles_c) * CP_R;
+  };
+  auto load = [&](int i) {
+    const unsigned bar = smem_addr(&full[i % CP_STAGES]);
+    int c, r;
+    coords(i, &c, &r);
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+                 "r"(CP_BYTES) : "memory");
+    asm volatile(
+        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+        ".L2::cache_hint [%0], [%1, {%2, %3}], [%4], %5;\n"
+        ::"r"(smem_addr(buf + (i % CP_STAGES) * CP_BYTES)), "l"(smap), "r"(c), "r"(r),
+        "r"(bar), "l"(once) : "memory");
+  };
+  for (int i = 0; i < CP_STAGES - 1 && i < mine; ++i) load(i);
+  for (int i = 0; i < mine; ++i) {
+    const unsigned bar = smem_addr(&full[i % CP_STAGES]);
+    const unsigned parity = (unsigned)(i / CP_STAGES) & 1u;
+    asm volatile(
+        "{\n .reg .pred p;\n WAIT:\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+        " @!p bra WAIT;\n}\n" ::"r"(bar), "r"(parity) : "memory");
+    int c, r;
+    coords(i, &c, &r);
+    asm volatile(
+        "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group.L2::cache_hint"
+        " [%0, {%1, %2}], [%3], %4;\n"
+        ::"l"(dmap), "r"(c), "r"(r), "r"(smem_addr(buf + (i % CP_STAGES) * CP_BYTES)),
+        "l"(once) : "memory");
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    if (i + CP_STAGES - 1 < mine) {
+      // its buffer held tile i - 1: wait until that store has read it (the
+      // store of tile i may still be reading)
+      asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
+      load(i + CP_STAGES - 1);
     }
   }
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point, so
+// nothing beyond the CUDA runtime is linked.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 13000
+    const cudaError_t e =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
+  }
+  return fn;
+}
+
+// A (rows, cols) int32 map with (CP_R, CP_C) boxes; false if TMA refuses it.
+bool tile_map(CUtensorMap* map, const void* base, int rows, int cols) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 4};
+  const cuuint32_t box[2] = {CP_C, CP_R}, elem[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_INT32, 2, const_cast<void*>(base), dims, strides, box,
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
+}
+
+int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      n = 132;
+  }
+  return n;
 }
 
 // ---------------------------------------------------------------- S5, S8 --
@@ -298,19 +427,48 @@ int zk_expand(const void* in, long long in_words, long long ld, int nrows, int s
   return (int)cudaGetLastError();
 }
 
-// S2 (transpose = 1) and S4 (transpose = 0): in (rows, cols), out (cols,
-// rows) or (rows, cols).
-int zk_tile32(const void* in, void* out, int rows, int cols, int transpose, void* stream) {
+// S2: in (rows, cols) -> out (cols, rows).
+int zk_tile32(const void* in, void* out, int rows, int cols, void* stream) {
   dim3 grid;
   if (!tile_grid(rows, cols, 32, 32, &grid)) return (int)cudaErrorInvalidValue;
-  if (rows > 0 && cols > 0) {
-    if (transpose)
-      tile32_kernel<true><<<grid, dim3(32, 8), 0, (cudaStream_t)stream>>>(
-          (const int32_t*)in, (int32_t*)out, rows, cols);
-    else
-      tile32_kernel<false><<<grid, dim3(32, 8), 0, (cudaStream_t)stream>>>(
-          (const int32_t*)in, (int32_t*)out, rows, cols);
+  if (rows > 0 && cols > 0)
+    tile32_kernel<<<grid, dim3(32, 8), 0, (cudaStream_t)stream>>>((const int32_t*)in,
+                                                                  (int32_t*)out, rows, cols);
+  return (int)cudaGetLastError();
+}
+
+// S4: out (rows, cols) = in (rows, cols); both 16-byte aligned.
+int zk_copy_tma(const void* in, void* out, int rows, int cols, void* stream) {
+  if (rows < 0 || cols < 0) return (int)cudaErrorInvalidValue;
+  const int64_t words = (int64_t)rows * cols;
+  if (words == 0) return (int)cudaGetLastError();
+  static bool attr = false;
+  if (!attr) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        copy_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, CP_STAGES * CP_BYTES);
+    if (e != cudaSuccess) return (int)e;
+    attr = true;
   }
+  CUtensorMap src{}, dst{};
+  const int use_tma = (cols % 4) == 0;
+  int tiles_c = 0, tiles = 0;
+  unsigned grid;
+  if (use_tma) {
+    if (!tile_map(&src, in, rows, cols) || !tile_map(&dst, out, rows, cols))
+      return (int)cudaErrorInvalidValue;
+    tiles_c = (cols + CP_C - 1) / CP_C;
+    const int64_t nt = (int64_t)tiles_c * ((rows + CP_R - 1) / CP_R);
+    if (nt >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+    tiles = (int)nt;
+    // at most 3 blocks an SM (64 KB of tiles each), all with the same count
+    const int per = (tiles + 3 * sm_count() - 1) / (3 * sm_count());
+    grid = (unsigned)((tiles + per - 1) / per);
+  } else {
+    const int64_t blocks = ((words >> 2) + CP_THREADS - 1) / CP_THREADS;
+    grid = (unsigned)(blocks < 8 * sm_count() ? (blocks > 0 ? blocks : 1) : 8 * sm_count());
+  }
+  copy_kernel<<<grid, CP_THREADS, use_tma ? CP_STAGES * CP_BYTES : 0, (cudaStream_t)stream>>>(
+      src, dst, use_tma, tiles_c, tiles, (const int32_t*)in, (int32_t*)out, words);
   return (int)cudaGetLastError();
 }
 

@@ -14,7 +14,7 @@ Stages (n = 2^log2n points, B2 = 4096 buckets, NL = 16 limbs):
   tkernel        S2: (B2, NL R) -> (NL R, B2) through 32 x 32 tiles, R = 392
   expand_dma     S3: out[b] = X[:, start_b : start_b + R] of (NL, n + R)
   expand_scan    the same expansion as one torch gather of whole windows
-  tk_copy        S4: identity copy on S2's grid
+  tk_copy        S4: identity copy, tile by tile (TMA)
   tk_fat         S5: the transpose in 64 x 64 tiles, 16 bytes a thread
   tk_mxu         S6: the transpose on the tensor cores
   expand_dma_pm  S7: S1's function at R = 392 (its own kernel counter)
