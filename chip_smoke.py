@@ -20,9 +20,10 @@ Phases, one line each or more:
      of BN254 (16-limb build) and of BLS12-381 (24-limb build), and at the
      G1 MSM's shape (2^20 points, c = 13); the chunk length, the chunks and
      the CUDA launches of one call;
-  4. K2m (bucket_accumulate_mma) at the four prove shapes against its plain
-     version and the rank-order plain K2, bit for bit, and against K2 as
-     points (cross-multiplied), timed in turns with K2;
+  4. K2m (bucket_accumulate_mma) against its chunked plain version and
+     against K2, bit for bit, at the four prove shapes, at the G1 MSM's
+     shape and at the flagged PlonK prove's (2^15 + 6 points, c = 11), each
+     timed in turns with K2;
   5. a device-resident BN254 G1 MSM at 2^20 against the host oracle
      G * sum(s_i (i % 64 + 1)) for points (i % 64 + 1) G;
   6. the same MSM with ZKSNAKE_MXU_MONTMUL=1 (K3 for the large products, K2m
@@ -339,7 +340,9 @@ def _cuda_launches(ctx, fn):
     return n or None
 
 
-def _k2_inputs(ctx, curve_name, group, logn, c, seed=0x2B):
+def _k2_inputs(ctx, curve_name, group, logn, c, seed=0x2B, n=None):
+    """One MSM's sorted windows: n points (2^logn unless given) (i % 64 + 1) G
+    of `group` with seeded random scalars, sorted for window size c."""
     from zksnake_tpu_torch.backend.curve_ops import get_group_spec
     from zksnake_tpu_torch.backend.msm import scalars_to_device, sort_by_digit
     from zksnake_tpu_torch.curves import get_curve_module
@@ -348,10 +351,11 @@ def _k2_inputs(ctx, curve_name, group, logn, c, seed=0x2B):
     curve = cm._curve
     rng = random.Random(seed)
     gs = get_group_spec(curve, group)
-    n = 1 << logn
+    n = n or 1 << logn
     for _ in range(n * (group - 1)):  # G2 takes the n draws that follow G1's
         rng.randrange(curve.r)
-    P, _ = _tiled_points(gs, cm, n, ctx.device)
+    P, _ = _tiled_points(gs, cm, -(-n // 64) * 64, ctx.device)
+    P = gs.map(lambda t: t[:, :n].contiguous(), P)
     s = scalars_to_device([rng.randrange(curve.r) for _ in range(n)], curve.r, ctx.device)
     pts, starts, lens, _, _ = sort_by_digit(gs, P, s, c)
     return gs, pts, starts, lens
@@ -381,7 +385,7 @@ def phase_k2(ctx):
         ms = ctx.time_ms(lambda: kernels.bucket_accumulate(gs, pts, starts, lens), 3)
         W_, B2 = starts.shape
         adds = int(lens.sum())  # mixed adds this data needs
-        chunks = int(((lens.long() + T - 1) // T).sum())
+        chunks = int(kernels.chunk_table(lens)[-1])
         nbytes = 4 * (pts.numel() + starts.numel() + lens.numel() + got.numel())
         bms, bby = _k2_bound(gs, adds, nbytes, False)
         row = {"curve": curve_name, "group": group, "points": 1 << logn, "c": c,
@@ -405,13 +409,13 @@ def phase_k2(ctx):
 
 def _k2_bound(gs, adds, nbytes, mma):
     """K2's and K2m's bound: the mixed adds this data needs, 13 products
-    each (39 for G2's Karatsuba Fq2). K2 makes the two products by 3b
-    additions where 3b is a small integer (GroupSpec.b3_small: G1 of both
-    curves, BLS12-381's G2), so it needs 11 (33) there. A CIOS product is
+    each (39 for G2's Karatsuba Fq2), 11 (33) where 3b is a small integer
+    (GroupSpec.b3_small: G1 of both curves, BLS12-381's G2), whose two
+    products by 3b both kernels make additions. A CIOS product is
     cios_imads words; K2m's is the 2 NW^2 schoolbook multiply-adds and
     3 NB^2 tensor-core MACs (6 NB^2 operations)."""
     nw = gs.fs.nl // 2
-    per_add = 11 if not mma and gs.b3_small() else 13
+    per_add = 11 if gs.b3_small() else 13
     prods = adds * per_add * (1 if gs.group == 1 else 3)
     if not mma:
         return bound(nbytes, [(prods * cios_imads(nw), IMAD_OPS_S)])
@@ -421,51 +425,88 @@ def _k2_bound(gs, adds, nbytes, mma):
 
 
 def phase_k2m(ctx):
-    """K2m against its plain version and the rank-order plain K2, limb for
-    limb, and against K2 as points (K2 sums in chunks, K2m in rank order),
-    timed in turns with K2."""
+    """K2m against its chunked plain version (K3's products in K2's order)
+    and against K2, limb for limb, at the four prove shapes, at the G1
+    MSM's 2^20, c = 13 shape and at the flagged PlonK prove's (2^15 + 6
+    points, c = 11, BN254 G1); timed in turns with K2 at each. Then K2 and
+    K2m on overlapping runs (four windows of 2^8 points, c = 7) against
+    their plain versions."""
     from zksnake_tpu_torch.backend import kernels
 
-    logn, c = (PROVE_LOGN, 11) if not ctx.rehearse else (9, 7)
+    T = kernels.K2_CHUNK
+    prove = (PROVE_LOGN, 11) if not ctx.rehearse else (9, 7)
+    shapes = [(cv, g) + prove + (None,) for cv in K2_CURVES for g in (1, 2)]
+    shapes.append(("BN254", 1) + ((MSM_LOGN, 13) if not ctx.rehearse else (10, 9)) + (None,))
+    plonk_n = (1 << PLONK_LOGN if not ctx.rehearse else 1 << 8) + 6  # the SRS's points
+    shapes.append(("BN254", 1, None, 11 if not ctx.rehearse else 7, plonk_n))
     rows = []
-    for curve_name in K2_CURVES:
-        for group in (1, 2):
-            gs, pts, starts, lens = _k2_inputs(ctx, curve_name, group, logn, c)
-            got = kernels.bucket_accumulate_mma(gs, pts, starts, lens)
-            k2 = kernels.bucket_accumulate(gs, pts, starts, lens)
-            t0 = time.perf_counter()
-            want = kernels.bucket_accumulate_mma_plain(gs, pts, starts, lens)
-            ctx.sync()
-            plain_ms = (time.perf_counter() - t0) * 1e3
-            err = int((got.long() - want.long()).abs().max())
-            if err != 0:
-                raise AssertionError(f"K2m {curve_name} G{group}: kernel != plain (max |err| {err})")
-            if not ctx.torch.equal(got, kernels.bucket_accumulate_plain(gs, pts, starts, lens)):
-                raise AssertionError(f"K2m {curve_name} G{group}: kernel != rank-order plain K2")
-            as_points = lambda t: gs.unflatten(list(t.reshape(t.shape[0], gs.fs.nl, -1)))  # noqa: E731
-            if not bool(gs.plain().equal(as_points(got), as_points(k2)).all()):
-                raise AssertionError(f"K2m {curve_name} G{group}: not K2's points")
-            # in turns, in one call: K2m, K2, K2, K2m
-            runs = {"k2m": lambda: kernels.bucket_accumulate_mma(gs, pts, starts, lens),
-                    "k2": lambda: kernels.bucket_accumulate(gs, pts, starts, lens)}
-            turns = [ctx.time_ms(runs[k], 3) for k in ("k2m", "k2", "k2", "k2m")]
-            ms, k2_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
-            W_, B2 = starts.shape
-            adds = int(lens.sum())
-            nbytes = 4 * (pts.numel() + starts.numel() + lens.numel() + got.numel())
-            bms, bby = _k2_bound(gs, adds, nbytes, True)
-            row = {"curve": curve_name, "group": group, "points": 1 << logn, "c": c,
-                   "windows": W_, "buckets": B2, "max_run": int(lens.max()), "mixed_adds": adds,
-                   "max_abs_err": err, "ms": ms, "k2_ms": k2_ms, "turns_ms": turns,
-                   "plain_ms": plain_ms, "bound_ms": bms, "bound_by": bby}
-            rows.append(row)
-            log(f"[4] K2m bucket_accumulate_mma {curve_name} G{group} 2^{logn} points c={c}: "
-                f"bit-identical to plain and to the rank-order plain K2, K2's points; K2m "
-                f"{ms:.3f} ms, K2 {k2_ms:.3f} ms (turns " + " ".join(f"{t:.3f}" for t in turns)
-                + f"), plain {plain_ms:.1f} ms, bound {bms:.4f} ms ({bby})")
-            del pts, got, want, k2
+    for curve_name, group, logn, c, n in shapes:
+        gs, pts, starts, lens = _k2_inputs(ctx, curve_name, group, logn, c, n=n)
+        n = pts.shape[-1]
+        got = kernels.bucket_accumulate_mma(gs, pts, starts, lens)
+        k2 = kernels.bucket_accumulate(gs, pts, starts, lens)
+        t0 = time.perf_counter()
+        want = kernels.bucket_accumulate_plain(gs, pts, starts, lens, mode="mma", chunk=T)
+        ctx.sync()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = int((got.long() - want.long()).abs().max())
+        where = f"K2m {curve_name} G{group} {n} points c={c}"
+        if err != 0:
+            raise AssertionError(f"{where}: kernel != chunked plain (max |err| {err})")
+        if not ctx.torch.equal(got, k2):
+            raise AssertionError(f"{where}: kernel != K2")
+        # in turns, in one call: K2m, K2, K2, K2m
+        runs = {"k2m": lambda: kernels.bucket_accumulate_mma(gs, pts, starts, lens),
+                "k2": lambda: kernels.bucket_accumulate(gs, pts, starts, lens)}
+        turns = [ctx.time_ms(runs[k], 3) for k in ("k2m", "k2", "k2", "k2m")]
+        ms, k2_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+        W_, B2 = starts.shape
+        adds = int(lens.sum())
+        chunks = int(kernels.chunk_table(lens)[-1])
+        nbytes = 4 * (pts.numel() + starts.numel() + lens.numel() + got.numel())
+        bms, bby = _k2_bound(gs, adds, nbytes, True)
+        row = {"curve": curve_name, "group": group, "points": n, "c": c,
+               "windows": W_, "buckets": B2, "max_run": int(lens.max()), "mixed_adds": adds,
+               "chunk": T, "chunks": chunks, "max_abs_err": err, "ms": ms, "k2_ms": k2_ms,
+               "turns_ms": turns, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": bby}
+        rows.append(row)
+        log(f"[4] K2m bucket_accumulate_mma {curve_name} G{group} {n} points c={c} "
+            f"({W_}x{B2} runs, {adds} mixed adds, {chunks} chunks): bit-identical to the "
+            f"chunked plain version and to K2; K2m {ms:.3f} ms, K2 {k2_ms:.3f} ms (turns "
+            + " ".join(f"{t:.3f}" for t in turns)
+            + f"), plain {plain_ms:.1f} ms, bound {bms:.4f} ms ({bby})")
+        del pts, got, want, k2
     ctx.detail["k2m"] = rows
     ctx.kernels["bucket_accumulate_mma"] = rows[0]
+    # overlapping runs, as a direct call may give them: more chunks than the
+    # scratch holds, which the fold sums from their points; K2 and K2m
+    # against their chunked plain versions
+    import numpy as np
+
+    torch = ctx.torch
+    for curve_name, group in (("BN254", 1), ("BLS12_381", 2)):
+        gs, pts, starts, _ = _k2_inputs(ctx, curve_name, group, 8, 7)
+        pts = pts[:, :, :4].contiguous()  # four windows' rows of real points
+        W_, B2 = 4, starts.shape[1]
+        n = pts.shape[-1]
+        rng = np.random.default_rng(group)
+        lens = torch.from_numpy(rng.integers(0, n + 1, size=(W_, B2)).astype(np.int32))
+        starts = torch.minimum(torch.from_numpy(
+            rng.integers(0, n + 1, size=(W_, B2)).astype(np.int32)), n - lens)
+        starts, lens = starts.to(ctx.device), lens.to(ctx.device)
+        chunks = int(kernels.chunk_table(lens)[-1])
+        cap = kernels.chunk_scratch(W_, B2, n)
+        if chunks <= cap:
+            raise AssertionError(f"overlapping runs: {chunks} chunks fit the scratch ({cap})")
+        for name, mode in (("bucket_accumulate", True), ("bucket_accumulate_mma", "mma")):
+            got = getattr(kernels, name)(gs, pts, starts, lens)
+            want = kernels.bucket_accumulate_plain(gs, pts, starts, lens, mode=mode, chunk=T)
+            if not torch.equal(got, want):
+                raise AssertionError(f"{name} {curve_name} G{group}, overlapping runs: "
+                                     f"kernel != chunked plain")
+        log(f"[4] K2 and K2m {curve_name} G{group}, overlapping runs ({W_}x{B2} runs over "
+            f"{n} points, {chunks} chunks, scratch {cap}): bit-identical to their chunked "
+            f"plain versions")
 
 
 def _msm_2e20(ctx, tag, group=1):

@@ -7,8 +7,9 @@ the card:
     python -m pytest tests/test_torch_kernels_cuda.py -q
 
 K1, K2 and K2m (16- and 24-limb builds) and K3 must match their plain versions limb
-for limb (integer field arithmetic has no tolerance; K2 its chunked plain
-version, K2m its rank-order one), and so must the relayout
+for limb (integer field arithmetic has no tolerance; K2 and K2m their
+chunked plain versions, on overlapping runs too, and K2m K2), and so must
+the relayout
 kernels S1-S8 and the G2 probe S9 on ragged edges (a start of n - 1, R not a
 multiple of 4, planes not a multiple of any tile, all-ones bytes); each
 wrapper must count one launch per call, refuse what its kernel does not take,
@@ -103,16 +104,23 @@ def test_bucket_kernel_matches_plain(card, curve, group):
     assert torch.equal(got, want)
 
 
+# K2 and K2m: the wrapper and the plain version's product mode; both sum in
+# K2's chunked order (chunk=K2_CHUNK)
+BUCKET_KERNELS = {"k2": ("bucket_accumulate", True), "k2m": ("bucket_accumulate_mma", "mma")}
+
+
+@pytest.mark.parametrize("kernel", sorted(BUCKET_KERNELS))
 @pytest.mark.parametrize("curve", ["BN254", "BLS12_381"])
 @pytest.mark.parametrize("group", [1, 2])
-def test_bucket_kernel_chunks_match_plain_at_the_edges(card, curve, group):
-    """K2 against its chunked plain version, limb for limb, where the chunk
-    table is ragged: a run of 2100 points (more than one block's chunks), a
-    block whose chunks run from window 0 through window 1 into window 2,
-    runs of 1, T, T + 1 and 2T + 1 points, empty buckets and an empty
-    window. The operands are random canonical field elements: the formulas
-    are the same arithmetic whether or not they are points."""
+def test_bucket_kernel_chunks_match_plain_at_the_edges(card, curve, group, kernel):
+    """K2 and K2m against their chunked plain versions, limb for limb, where
+    the chunk table is ragged: a run of 2100 points (more than one block's
+    chunks), a block whose chunks run from window 0 through window 1 into
+    window 2, runs of 1, T, T + 1 and 2T + 1 points, empty buckets and an
+    empty window. The operands are random canonical field elements: the
+    formulas are the same arithmetic whether or not they are points."""
     T = kernels.K2_CHUNK
+    name, mode = BUCKET_KERNELS[kernel]
     gs = get_group_spec(get_curve_module(curve, card)._curve, group)
     run_lens = [[0, 2100, 1, T + 1, 0, T, 2 * T + 1, 100],
                 [3, 0, T, 15, 40, 1, 0, 2], [0] * 8]
@@ -122,22 +130,54 @@ def test_bucket_kernel_chunks_match_plain_at_the_edges(card, curve, group):
     L = 2 * group
     planes = random_elems(gs.fs, L * 3 * n, 60 + group).reshape(gs.fs.nl, L, 3, n)
     pts = planes.permute(1, 0, 2, 3).contiguous().to(card)
-    got = kernels.bucket_accumulate(gs, pts, starts.to(card), lens.to(card))
+    before = kernels.LAUNCHES[name]
+    got = getattr(kernels, name)(gs, pts, starts.to(card), lens.to(card))
     torch.cuda.synchronize()
-    want = kernels.bucket_accumulate_plain(gs, pts, starts.to(card), lens.to(card), chunk=T)
+    assert kernels.LAUNCHES[name] == before + 1
+    want = kernels.bucket_accumulate_plain(gs, pts, starts.to(card), lens.to(card), mode=mode,
+                                           chunk=T)
     assert torch.equal(got, want)
     assert torch.equal(got[:, :, 2], want[:, :, 2])  # the empty window: identities
+
+
+@pytest.mark.parametrize("kernel", sorted(BUCKET_KERNELS))
+@pytest.mark.parametrize("curve", ["BN254", "BLS12_381"])
+@pytest.mark.parametrize("group", [1, 2])
+def test_bucket_kernels_match_plain_on_overlapping_runs(card, curve, group, kernel):
+    """Runs that share slots, as a direct call may give them: each window's
+    runs total several times its n points, so the chunk table has more
+    chunks than the scratch (sized from n) holds, and the buckets with
+    chunks past it, one across its end, are folded from their points. K2
+    and K2m must compute their plain versions' function on them, limb for
+    limb."""
+    T = kernels.K2_CHUNK
+    name, mode = BUCKET_KERNELS[kernel]
+    gs = get_group_spec(get_curve_module(curve, card)._curve, group)
+    n, B2 = 300, 16
+    rng = np.random.default_rng(80 + group)
+    lens = torch.from_numpy(rng.integers(0, n + 1, size=(2, B2)).astype(np.int32))
+    lens[0, :3] = torch.tensor([n, 1, 2 * T + 1], dtype=torch.int32)
+    starts = torch.from_numpy(rng.integers(0, n + 1, size=(2, B2)).astype(np.int32))
+    starts = torch.minimum(starts, n - lens)
+    coff, cap = kernels.chunk_table(lens), kernels.chunk_scratch(2, B2, n)
+    first = coff - (lens.reshape(-1).long() + T - 1) // T
+    assert int(coff[-1]) > cap and bool(((first < cap) & (coff > cap)).any())
+    L = 2 * group
+    planes = random_elems(gs.fs, L * 2 * n, 90 + group).reshape(gs.fs.nl, L, 2, n)
+    pts = planes.permute(1, 0, 2, 3).contiguous().to(card)
+    starts, lens = starts.to(card), lens.to(card)
+    got = getattr(kernels, name)(gs, pts, starts, lens)
+    torch.cuda.synchronize()
+    want = kernels.bucket_accumulate_plain(gs, pts, starts, lens, mode=mode, chunk=T)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("curve", ["BN254", "BLS12_381"])
 @pytest.mark.parametrize("group", [1, 2])
 def test_bucket_mma_kernel_matches_plain_and_k2(card, curve, group):
-    """K2m on ragged runs (empty buckets in the spread top window, and a
-    last block past the final bucket: c = 6 gives 43 x 32 = 1376 lanes, not
-    a multiple of the 64-lane block) against its plain version and the
-    rank-order plain K2, limb for limb, and against K2 as points (K2 sums
-    in chunks, K2m in rank order: other representatives of the same
-    points)."""
+    """K2m on ragged runs (empty buckets in the spread top window) against
+    its chunked plain version and against K2, limb for limb: K2m sums in
+    K2's order with canonical products."""
     cm = get_curve_module(curve, card)
     gs = get_group_spec(cm._curve, group)
     gen = cm.g1() if group == 1 else cm.g2()
@@ -153,11 +193,9 @@ def test_bucket_mma_kernel_matches_plain_and_k2(card, curve, group):
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["bucket_accumulate_mma"] == before["bucket_accumulate_mma"] + 1
     assert kernels.LAUNCHES["bucket_accumulate"] == before["bucket_accumulate"]
-    assert torch.equal(got, kernels.bucket_accumulate_mma_plain(gs, pts, starts, lens))
-    assert torch.equal(got, kernels.bucket_accumulate_plain(gs, pts, starts, lens))
-    k2 = kernels.bucket_accumulate(gs, pts, starts, lens)
-    as_points = lambda t: gs.unflatten(list(t.reshape(t.shape[0], gs.fs.nl, -1)))  # noqa: E731
-    assert bool(gs.plain().equal(as_points(got), as_points(k2)).all())
+    assert torch.equal(got, kernels.bucket_accumulate_plain(gs, pts, starts, lens, mode="mma",
+                                                            chunk=kernels.K2_CHUNK))
+    assert torch.equal(got, kernels.bucket_accumulate(gs, pts, starts, lens))
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(card):

@@ -8,7 +8,8 @@ zksnake_tpu/backend/pallas_field.py::_make_kernel; K2 `bucket_accumulate`
 (body mxu_field.py::mont_mul_mxu_cols), the Montgomery product whose two
 reduction products run on the matrix unit; K2m `bucket_accumulate_mma`
 (csrc/bucket_mma.cu) replaces the same bucket_accumulate_pallas under
-ZKSNAKE_MXU_MONTMUL=1, where every product of its body is K3's.
+ZKSNAKE_MXU_MONTMUL=1, where every product of its body is K3's: K2's chunk
+and fold kernels (csrc/bucket_chunks.cuh) on the tensor-core product.
 
 S1-S8 (csrc/relayout.cu) replace the Pallas kernels of
 scripts/bench_sortdma.py, the relayout probes of the MSM table; their
@@ -73,6 +74,12 @@ LAUNCHES = {"mont_mul": 0, "bucket_accumulate": 0, "mont_mul_mma": 0,
 
 _LIBS = {}
 _LOCK = threading.Lock()
+
+# K2's C interface (csrc/bucket.cu), and K2m's (csrc/bucket_mma.cu): the
+# same with K3's tile bytes before the stream
+_VP, _I, _LL, _U32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint32
+_K2_ARGTYPES = [_VP] * 6 + [_I] * 4 + [_LL, _LL, _VP, _U32, _VP, _VP, _I]
+BUCKET_ARGTYPES = {False: _K2_ARGTYPES + [_VP], True: _K2_ARGTYPES + [_VP, _VP]}
 
 
 def reset_launches():
@@ -142,7 +149,8 @@ def build(names=None):
 def ptxas_report(name):
     """[(kernel, registers, spill store bytes)] of library `name`, from its
     nvcc -Xptxas -v log; a kernel is named by its identifier and, for the
-    field templates, Fp or Fp2 (G1 or G2)."""
+    field templates, Fp or Fp2 (G1 or G2), and "cold" for the fold's cold
+    instance (its template's one bool set)."""
     import re
 
     path = os.path.join(BUILD_DIR, f"{name}.ptxas.txt")
@@ -161,7 +169,8 @@ def ptxas_report(name):
                     i += int(j.group())
                 ident = idents[-1] if idents else mangled
                 field = "Fp2" if "Fp2I" in mangled else "Fp" if "FpI" in mangled else ""
-                kernel = ident + (f"<{field}>" if field else "")
+                tags = [field] * bool(field) + ["cold"] * ("Lb1E" in mangled)
+                kernel = ident + (f"<{', '.join(tags)}>" if tags else "")
                 spills = 0
             m = re.search(r"(\d+) bytes spill stores", line)
             if m:
@@ -198,16 +207,11 @@ def _lib(name):
             elif name == "g2_block":
                 lib.zk_g2_block.argtypes = [i, vp, i, vp, i, ll, i, vp, u32, vp, vp, vp]
                 lib.zk_g2_block.restype = i
-            elif name.startswith("bucket_mma"):
-                lib.zk_bucket_accumulate_mma.argtypes = [
-                    vp, vp, vp, vp, i, i, i, i, ll, vp, u32, vp, vp, vp, vp
-                ]
-                lib.zk_bucket_accumulate_mma.restype = i
             else:
-                lib.zk_bucket_accumulate.argtypes = [
-                    vp, vp, vp, vp, vp, vp, i, i, i, i, ll, ll, vp, u32, vp, vp, i, vp
-                ]
-                lib.zk_bucket_accumulate.restype = i
+                mma = name.startswith("bucket_mma")
+                fn = lib.zk_bucket_accumulate_mma if mma else lib.zk_bucket_accumulate
+                fn.argtypes = BUCKET_ARGTYPES[mma]
+                fn.restype = i
             _LIBS[name] = lib
         return _LIBS[name]
 
@@ -445,7 +449,8 @@ def bucket_accumulate_plain(gs, pts, starts, lens, mode=True, chunk=None):
     not empty). A bucket with one chunk keeps its partial. Both orders give
     the same points; with every run at most T long, the same limbs. `mode`
     picks the field product (GroupSpec.plain): True K1's plain version,
-    "mma" K3's.
+    "mma" K3's. `mode="mma", chunk=T` is K2m's plain version: K2m sums in
+    K2's order, and canonical products make the two equal limb for limb.
 
     pts: (L, nl, W, n) sorted planes (K2's input layout); starts, lens:
     (W, B2) int32. Returns the (3 or 6, nl, W, B2) projective bucket sums."""
@@ -494,15 +499,34 @@ def bucket_accumulate_plain(gs, pts, starts, lens, mode=True, chunk=None):
     return acc[..., 0].reshape(-1, nl, Wn, B2)
 
 
-def bucket_accumulate_mma_plain(gs, pts, starts, lens):
-    """Plain version of K2m on any device: K2's rank-order plain version
-    (K2m walks each run in rank order) with every field product through
-    mont_mul_mma_plain (K3's plain version)."""
-    return bucket_accumulate_plain(gs, pts, starts, lens, mode="mma")
+def chunk_table(lens, chunk=K2_CHUNK):
+    """K2's and K2m's chunk table for the runs `lens` (any shape; in (w, b)
+    order): the int64 inclusive prefix sum of ceil(len / chunk), on lens's
+    device. Nothing is read back: the kernels size their scratch by
+    chunk_scratch."""
+    nch = torch.empty(lens.numel(), dtype=torch.int64, device=lens.device)
+    torch.add(lens.reshape(-1), chunk - 1, out=nch)  # stored as int64: no launch to cast
+    return torch.cumsum(nch.div_(chunk, rounding_mode="floor"), 0)
 
 
-def _bucket_launch(gs, pts, starts, lens, mma):
-    """Launch K2 (mma=False) or K2m on the CUDA tensors' device."""
+def chunk_scratch(W, B2, n, chunk=K2_CHUNK):
+    """The chunk partials K2's and K2m's scratch holds for W windows of B2
+    runs over rows of n points: max(1, (W n + (chunk - 1) W B2) // chunk).
+    That is every chunk where each window's runs total at most n points,
+    as sort_by_digit's do (a window's sum of ceil(len / chunk) is then at
+    most (n + (chunk - 1) B2) / chunk). Runs that overlap can have more;
+    a bucket with a chunk past the scratch is folded from its points (the
+    fold kernel's cold instance, csrc/bucket_chunks.cuh), so the kernels
+    compute the same function of any runs and the host never waits for the
+    chunk count."""
+    return max(1, (W * n + (chunk - 1) * W * B2) // chunk)
+
+
+def _bucket_launch(gs, pts, starts, lens, mma, build=None):
+    """Launch K2 (mma=False) or K2m on the CUDA tensors' device. `build`, a
+    (C function, chunk length) pair, stands in another build of the same
+    C interface (scripts/k2_chunk_sweep.py); only the port's own launches
+    count."""
     dev = pts.device
     fs = gs.fs
     nl = fs.nl
@@ -518,28 +542,28 @@ def _bucket_launch(gs, pts, starts, lens, mma):
         raise ValueError(f"{name}: starts shape {tuple(starts.shape)}")
     B2 = starts.shape[1]
     out = torch.empty((3 * gs.group, nl, Wn, B2), dtype=torch.int32, device=dev)
-    consts = [ctypes.addressof(fs.words("p")), fs.pinv32,
-              ctypes.addressof(fs.words("one")), ctypes.addressof(gs.b3_words())]
+    consts = [ctypes.addressof(fs.words("p")), fs.pinv32, ctypes.addressof(fs.words("one")),
+              ctypes.addressof(gs.b3_words()), gs.b3_small()]
     if mma:
-        fn = _lib(f"bucket_mma{nl}").zk_bucket_accumulate_mma
-        args = [pts.data_ptr(), starts.data_ptr(), lens.data_ptr(), out.data_ptr(),
-                nl, gs.group, Wn, B2, n, *consts, fs.mma_tiles(dev).data_ptr()]
+        consts.append(fs.mma_tiles(dev).data_ptr())
+    own = build is None
+    if own:
+        fn = (_lib(f"bucket_mma{nl}").zk_bucket_accumulate_mma if mma
+              else _lib(f"bucket{nl}").zk_bucket_accumulate)
+        chunk = K2_CHUNK
     else:
-        # the chunk table (ceil(len / T) chunks a bucket, inclusive prefix
-        # sum) and scratch for the chunk partials, sized by the most chunks
-        # these shapes can have, so nothing waits for the card
-        T = K2_CHUNK
-        coff = torch.cumsum(torch.div(lens.reshape(-1) + (T - 1), T, rounding_mode="floor"),
-                            0, dtype=torch.int32)
-        cmax = (Wn * n + (T - 1) * Wn * B2) // T
-        part = torch.empty((3 * gs.group, nl, cmax), dtype=torch.int32, device=dev)
-        fn = _lib(f"bucket{nl}").zk_bucket_accumulate
-        args = [pts.data_ptr(), starts.data_ptr(), lens.data_ptr(), coff.data_ptr(),
-                part.data_ptr(), out.data_ptr(), nl, gs.group, Wn, B2, n, cmax, *consts,
-                gs.b3_small()]
+        fn, chunk = build
+    cap = chunk_scratch(Wn, B2, n, chunk)
+    if cap >= 1 << 31:
+        raise ValueError(f"{name}: {cap} chunks of scratch, more than the kernels index")
+    coff = chunk_table(lens, chunk)
+    part = torch.empty((3 * gs.group, nl, cap), dtype=torch.int32, device=dev)
+    args = [pts.data_ptr(), starts.data_ptr(), lens.data_ptr(), coff.data_ptr(),
+            part.data_ptr(), out.data_ptr(), nl, gs.group, Wn, B2, n, cap, *consts]
+    if own:
+        LAUNCHES[name] += 1
     with torch.cuda.device(dev):
         rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
-    LAUNCHES[name] += 1
     _check(rc, name)
     return out
 
@@ -556,10 +580,13 @@ def bucket_accumulate(gs, pts, starts, lens):
 
 
 def bucket_accumulate_mma(gs, pts, starts, lens):
-    """K2m on CUDA, its plain version on the CPU (K2's layouts)."""
+    """K2m on CUDA, its plain version on the CPU: K2's chunked plain version
+    with every field product through K3's plain version
+    (bucket_accumulate_plain(..., mode="mma", chunk=K2_CHUNK)); K2's
+    layouts."""
     dev = _device_of(pts, starts, lens)
     if dev.type == "cpu":
-        return bucket_accumulate_mma_plain(gs, pts, starts, lens)
+        return bucket_accumulate_plain(gs, pts, starts, lens, mode="mma", chunk=K2_CHUNK)
     if dev.type != "cuda":
         raise ValueError(f"bucket_accumulate_mma: unsupported device {dev}")
     return _bucket_launch(gs, pts, starts, lens, mma=True)

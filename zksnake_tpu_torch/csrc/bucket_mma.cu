@@ -9,18 +9,25 @@
 // reductions m = (T mod R) P' mod R and m p are matmuls of constant
 // byte-Toeplitz matrices against byte planes.
 //
-// Input and output are K2's: pts (L, nl, W, n) sorted planes, starts/lens
-// (W, B2), out (3 or 6, nl, W, B2) projective bucket sums, G1 and G2.
-// Canonical Montgomery products are equal limb for limb whatever the
-// reduction, so the output is bit-identical to K2's.
+// Input, scratch and output are K2's (bucket.cu): pts (L, nl, W, n) sorted
+// planes, starts/lens (W, B2), the int64 chunk table coff (W B2,), the
+// chunk partials part (3 or 6, nl, cap) with cap from the rows' length
+// (a bucket with chunks past it, which only overlapping runs have, the
+// fold's cold instance sums from its points, on the CIOS product: both
+// products are canonical, so the limbs are the same), and out (3 or 6, nl,
+// W, B2) projective bucket sums, G1 and G2.
 //
-// Design. A tensor-core product needs the whole warp, and K2 lets each
-// thread leave its run at its own length. Here one thread still owns one
-// (window, bucket), but a warp runs as many rounds as the longest run among
-// its 32 lanes (__reduce_max_sync); a lane past its run computes the add on
-// its run's first point and keeps its bucket (the Pallas kernel's `valid`
-// mask). Each product (13 per mixed add for G1, 39 for G2's Karatsuba Fq2)
-// is collective over the warp:
+// Design. K2m is K2's chunk and fold kernels (bucket_chunks.cuh), the same
+// chunk length T, the same fold over G lanes and its fixed tree, and K2's
+// SmallB3 where 3b is a small integer, instantiated with MmaProduct below
+// in place of the CIOS product. It sums in K2's order with canonical
+// products, so its output equals K2's limb for limb, and
+// kernels.bucket_accumulate_plain(..., mode="mma", chunk=T) follows the
+// same steps with K3's plain product. A product is collective over the
+// warp (MmaProduct::kWarp), so no lane leaves early: each lane runs its
+// warp's longest chunk (at most T steps) in the chunk kernel and its
+// warp's longest segment in the fold, computes past its end on a point it
+// may read, and keeps nothing there. Each product:
 //   1. each lane forms T = a b in 32-bit words (the schoolbook of K3) and
 //      writes the NB = 2 nl bytes of T mod R into the warp's (NB x 32) byte
 //      tile in shared memory;
@@ -30,20 +37,23 @@
 //   4. the warp runs PPMAT @ bytes(m), 2 NB rows;
 //   5. each lane folds T + m p word by word and subtracts p once.
 // The PMAT/PPMAT tiles (FieldSpec.mma_tiles, K3's) are copied into shared
-// memory once per block. A block is two warps: 21.5 KB of shared memory
-// for BN254, 34.5 KB for BLS12-381.
+// memory once per block, beside each warp's byte and int32 tiles: 39 KB a
+// 128-thread block for BN254, 61 KB for BLS12-381 (Shape below).
 //
-// What bounds it: the operations, as K2; each product adds two warp
-// barriers and 3 NB x 32 int32 words through shared memory. The product is
-// a __noinline__ function so the G2 variants (39 products per add) build
-// in reasonable time. This first version is right and simple; mma.sync
-// with the accumulators kept in registers, and load balancing the runs,
-// are later work.
+// What bounds it. The work is the adds K2 does, 11 or 13 products each (33
+// or 39 for G2), each 2 NW^2 multiply-adds for T and 3 NB^2 tensor-core
+// MACs: operations. What the card spends is latency: a product is two
+// tile products with four warp barriers and 3 NB x 32 int32 words through
+// shared memory, so a warp waits on every product; chunks give about
+// W n / T threads (K2's 400k at the prove shape, against 24,576 when one
+// thread walked a whole bucket), so as many warps as the registers allow
+// hide each other's waits. The product is a __noinline__ function so the
+// G2 variants (39 products per add) build in reasonable time.
 
 #include <cuda_runtime.h>
 #include <mma.h>
 
-#include "field.cuh"
+#include "bucket_chunks.cuh"
 
 // One library per limb count (ZK_NL = 16: BN254, 24: BLS12-381).
 #ifndef ZK_NL
@@ -53,9 +63,6 @@
 namespace {
 
 using namespace nvcuda;
-
-constexpr int LB = 64;  // threads per block: two warps
-constexpr int WARPS = LB / 32;
 
 // acc[(mt * 16 + r) * 32 + lane] = sum_k A[mt * 16 + r][k] * B[k][lane] for
 // every row tile of A and both 16-lane tiles of the warp. A: (MT x KT) row-
@@ -162,88 +169,47 @@ struct MmaMul {
   }
 };
 
-// mats: K3's tiles (FieldSpec.mma_tiles): the NB x NB block of PMAT then the
-// 2NB x NB block of PPMAT, 16-byte aligned.
-template <class F, int NW>
-__global__ void __launch_bounds__(LB)
-bucket_mma_kernel(const int32_t* __restrict__ pts, const int32_t* __restrict__ starts,
-                  const int32_t* __restrict__ lens, int32_t* __restrict__ out, int W,
-                  int B2, int64_t n, zk::FieldParams<NW> P, F b3,
-                  const uint4* __restrict__ mats) {
-  constexpr int NB = 4 * NW;
-  constexpr int KT = NB / 16;
-  constexpr int MAT_BYTES = 3 * KT * KT * 256;
-  __shared__ __align__(32) unsigned char smats[MAT_BYTES];
-  __shared__ __align__(32) unsigned char planes[WARPS][KT * 2 * 256];
-  __shared__ __align__(32) int acc[WARPS][2 * NB * 32];
-  for (int i = threadIdx.x; i < MAT_BYTES / 16; i += LB)
-    reinterpret_cast<uint4*>(smats)[i] = mats[i];
-  __syncthreads();
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int64_t nb = (int64_t)W * B2;
-  const int64_t tid = (int64_t)blockIdx.x * LB + threadIdx.x;
-  // lanes past the last bucket take part in the warp's products and store
-  // nothing
-  const bool live = tid < nb;
-  const int64_t w = live ? tid / B2 : 0;
-  const int64_t start = live ? starts[tid] : 0;
-  const int len = live ? lens[tid] : 0;
-  const int rounds = __reduce_max_sync(0xFFFFFFFFu, len);
-  // leaf l, row w: plane base + l * (nl * W * n) + w * n; limbs at stride W*n
-  const int64_t stride = (int64_t)W * n;
-  const int32_t* row = pts + w * n;
-  const MmaMul<NW> mul{P, smats, smats + KT * KT * 256, planes[warp], acc[warp], lane};
-
-  F X, Y, Z;
-  zk::set_zero<NW>(X);
-  zk::set_one<NW>(Y, P);
-  zk::set_zero<NW>(Z);
-  for (int k = 0; k < rounds; ++k) {
-    const int64_t pos = k < len ? start + k : (len > 0 ? start : 0);
-    const F qx = zk::load_leaf<NW>(row, 0, stride, pos, (F*)nullptr);
-    const F qy = zk::load_leaf<NW>(row, 1, stride, pos, (F*)nullptr);
-    F x = X, y = Y, z = Z;
-    zk::add_affine_with<F, NW>(x, y, z, qx, qy, b3, P, mul);
-    if (k < len) {
-      X = x;
-      Y = y;
-      Z = z;
-    }
-  }
-  if (live) {
-    zk::store_leaf<NW>(out, 0, nb, tid, X);
-    zk::store_leaf<NW>(out, 1, nb, tid, Y);
-    zk::store_leaf<NW>(out, 2, nb, tid, Z);
-  }
-}
-
+// K2m's product for bucket_chunks.cuh: aux holds K3's tiles
+// (FieldSpec.mma_tiles), the NB x NB block of PMAT then the 2NB x NB block
+// of PPMAT, 16-byte aligned; the block's shared memory holds them, then
+// each warp's byte tile and int32 tile.
 template <int NW>
-int launch(const void* pts, const void* starts, const void* lens, void* out, int group,
-           int W, int B2, int64_t n, const uint32_t* p, uint32_t pinv, const uint32_t* one,
-           const uint32_t* b3, const void* mats, cudaStream_t stream) {
-  const zk::FieldParams<NW> P = zk::field_params<NW>(p, pinv, one);
-  const int64_t nb = (int64_t)W * B2;
-  const unsigned blocks = (unsigned)((nb + LB - 1) / LB);
-  if (nb == 0) return (int)cudaGetLastError();
-  if (group == 1) {
-    zk::Fp<NW> c;
-    zk::load_b3<NW>(c, b3);
-    bucket_mma_kernel<zk::Fp<NW>, NW><<<blocks, LB, 0, stream>>>(
-        (const int32_t*)pts, (const int32_t*)starts, (const int32_t*)lens, (int32_t*)out,
-        W, B2, n, P, c, (const uint4*)mats);
-  } else if (group == 2) {
-    zk::Fp2<NW> c;
-    zk::load_b3<NW>(c, b3);
-    bucket_mma_kernel<zk::Fp2<NW>, NW><<<blocks, LB, 0, stream>>>(
-        (const int32_t*)pts, (const int32_t*)starts, (const int32_t*)lens, (int32_t*)out,
-        W, B2, n, P, c, (const uint4*)mats);
-  } else {
-    return (int)cudaErrorInvalidValue;
+struct MmaProduct {
+  static constexpr bool kWarp = true;
+  static constexpr int NB = 4 * NW, KT = NB / 16;
+  static constexpr int MAT_BYTES = 3 * KT * KT * 256;
+  static constexpr int PLANE_BYTES = KT * 2 * 256;
+  static constexpr int WARP_BYTES = PLANE_BYTES + 2 * NB * 32 * 4;
+  __host__ __device__ static constexpr int smem_bytes(int bt) {
+    return MAT_BYTES + bt / 32 * WARP_BYTES;
   }
-  return (int)cudaGetLastError();
-}
+  __device__ static MmaMul<NW> make(const zk::FieldParams<NW>& P, unsigned char* smem,
+                                    const void* aux) {
+    const uint4* mats = static_cast<const uint4*>(aux);
+    for (int i = threadIdx.x; i < MAT_BYTES / 16; i += blockDim.x)
+      reinterpret_cast<uint4*>(smem)[i] = mats[i];
+    __syncthreads();
+    unsigned char* mine = smem + MAT_BYTES + (threadIdx.x >> 5) * WARP_BYTES;
+    return MmaMul<NW>{P, smem, smem + KT * KT * 256, mine,
+                      reinterpret_cast<int*>(mine + PLANE_BYTES), (int)(threadIdx.x & 31)};
+  }
+};
+
+// K2m's counterpart of K2's Shape (bucket.cu): threads a block, per group;
+// the blocks are K2's. The chunk kernel reads its points straight from
+// device memory (STAGES = 0; bucket_chunks.cuh refuses a ring for a
+// warp-collective product): a cp.async ring beside the product's tiles
+// made K2m 3-44% slower on the H100 (PERF.md §6).
+template <class F>
+struct Shape;
+template <int NW>
+struct Shape<zk::Fp<NW>> {
+  static constexpr int BT = 128, STAGES = 0;
+};
+template <int NW>
+struct Shape<zk::Fp2<NW>> {
+  static constexpr int BT = 64, STAGES = 0;
+};
 
 }  // namespace
 
@@ -251,12 +217,15 @@ extern "C" {
 
 // K2's interface (bucket.cu) plus mats, the device tile bytes of K3.
 int zk_bucket_accumulate_mma(const void* pts, const void* starts, const void* lens,
-                             void* out, int nl, int group, int W, int B2, long long n,
-                             const uint32_t* p, uint32_t pinv, const uint32_t* one,
-                             const uint32_t* b3, const void* mats, void* stream) {
-  if (nl != ZK_NL) return (int)cudaErrorInvalidValue;
-  return launch<ZK_NL / 2>(pts, starts, lens, out, group, W, B2, n, p, pinv, one, b3, mats,
-                           (cudaStream_t)stream);
+                             const void* coff, void* part, void* out, int nl, int group, int W,
+                             int B2, long long n, long long cap, const uint32_t* p,
+                             uint32_t pinv, const uint32_t* one, const uint32_t* b3, int b3k,
+                             const void* mats, void* stream) {
+  if (nl != ZK_NL || cap < 1 || cap >= (1LL << 31) || mats == nullptr)
+    return (int)cudaErrorInvalidValue;
+  return zk::bucket::launch<ZK_NL / 2, MmaProduct, Shape>(
+      pts, starts, lens, coff, part, out, group, W, B2, n, cap, p, pinv, one, b3, b3k, mats,
+      (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -282,12 +282,12 @@ __device__ __forceinline__ void add_affine(F& X1, F& Y1, F& Z1, const F& X2,
 
 // Complete projective addition, RCB15 Algorithm 7 with a = 0:
 // (X1:Y1:Z1) += (X2:Y2:Z2). The formula of GroupSpec.add, so every output
-// coordinate is the same field element; 14 CIOS products (12 where b3 is a
-// SmallB3).
-template <class F, int NW, class B>
-__device__ __forceinline__ void add_proj(F& X1, F& Y1, F& Z1, const F& X2, const F& Y2,
-                                         const F& Z2, const B& b3, const FieldParams<NW>& P) {
-  const CiosMul<NW> mul{P};
+// coordinate is the same field element. Every field product goes through
+// `mul` (14 of them; 12 where b3 is a SmallB3).
+template <class F, int NW, class M, class B>
+__device__ __forceinline__ void add_proj_with(F& X1, F& Y1, F& Z1, const F& X2, const F& Y2,
+                                              const F& Z2, const B& b3,
+                                              const FieldParams<NW>& P, const M& mul) {
   const F t0 = fmul_with(X1, X2, P, mul);
   const F t1 = fmul_with(Y1, Y2, P, mul);
   const F t2 = fmul_with(Z1, Z2, P, mul);
@@ -302,6 +302,12 @@ __device__ __forceinline__ void add_proj(F& X1, F& Y1, F& Z1, const F& X2, const
   X1 = fsub(fmul_with(t3, t1m, P, mul), fmul_with(t4, y3p, P, mul), P);
   Y1 = fadd(fmul_with(y3p, t0_3, P, mul), fmul_with(t1m, z3s, P, mul), P);
   Z1 = fadd(fmul_with(z3s, t4, P, mul), fmul_with(t0_3, t3, P, mul), P);
+}
+
+template <class F, int NW, class B>
+__device__ __forceinline__ void add_proj(F& X1, F& Y1, F& Z1, const F& X2, const F& Y2,
+                                         const F& Z2, const B& b3, const FieldParams<NW>& P) {
+  add_proj_with<F, NW>(X1, Y1, Z1, X2, Y2, Z2, b3, P, CiosMul<NW>{P});
 }
 
 // ------------------------------------------------- bucket-kernel helpers --
