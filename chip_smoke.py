@@ -10,11 +10,14 @@ card.
 
 Phases, one line each or more:
   0. the card (nvidia-smi name and power limit), torch and CUDA versions, the
-     kernels' build from zksnake_tpu_torch/csrc (registers and spills);
+     kernels' build from zksnake_tpu_torch/csrc (registers and spills; only
+     K1's and K3's libraries where no phase after 2 runs);
   1. K1 (mont_mul) against its plain version, bit for bit, at (16, 2^20) for
      BN254 Fr and Fq and (24, 2^18) for BLS12-381 Fq, with 0, 1, p-1 lanes;
   2. K3 (mont_mul_mma) against its plain version, bit for bit, at the same
-     shapes, timed beside K1;
+     shapes, timed in turns with K1; then against K1 and timed in turns with
+     it at every launch width of the flagged warm proves of phases 11 and 12
+     (K3_PATH_WIDTHS), with each path's loss, launches x (ms - bound);
   3. K2 (bucket_accumulate) against its chunked plain version, bit for bit,
      on one MSM's windows at the prove shape (2^17 points, c = 11), G1 and G2
      of BN254 (16-limb build) and of BLS12-381 (24-limb build), and at the
@@ -40,12 +43,12 @@ Phases, one line each or more:
  11. a main path: the same at 2^17 over BLS12-381, a cold and a warm prove by
      default, then a warm prove with ZKSNAKE_MXU_MONTMUL=1 under the same
      r, s: the two proofs are byte-equal and verify, and K3 and K2m launch
-     (and K2 does not) only under the flag;
+     (and K2 does not) only under the flag, K3 at K3_PATH_WIDTHS' widths;
  12. a main path: the mult chain at 2^15 gates through Plonk(plonkish,
      "BN254", device="cuda"): front end, setup, a cold and a warm prove,
      verify, then a warm prove with ZKSNAKE_MXU_MONTMUL=1 under the same 11
      blinds: byte-equal proofs that verify; K1 and K2 launch without the
-     flag, K1, K3 and K2m (and no K2) under it;
+     flag, K1, K3 and K2m (and no K2) under it, K3 at K3_PATH_WIDTHS' widths;
  13. a measurement path: every stage of zksnake_tpu_torch.scripts.bench_sortdma
      at its full shapes (n = 2^20, B2 = 4096, R = 385 / 392, NL = 16,
      M = 6272), each S1-S8 kernel launched on it; then each of them against
@@ -66,6 +69,7 @@ measurement as JSON.
 """
 
 import argparse
+import collections
 import json
 import os
 import random
@@ -82,6 +86,30 @@ MSM_LOGN = 20
 PLONK_LOGN = 15
 RELAYOUT_LOGN = 20  # bench_sortdma's n
 G2_BLOCK_LANES = 1024  # debug_g2_mosaic.py's B
+# K3's launches by (field, lanes) in the flagged warm proves of phases 11
+# (Groth16 BLS12-381, 2^17 constraints: 198) and 12 (PlonK BN254, 2^15
+# gates: 347), as those phases count them (they fail if the count differs)
+K3_PATH_WIDTHS = {
+    "groth16_bls12_381": {
+        ("BLS12_381_Fr", 131072): 63, ("BLS12_381_Fr", 65536): 51, ("BLS12_381_Fq", 442368): 20,
+        ("BLS12_381_Fq", 589824): 20, ("BLS12_381_Fq", 147456): 12, ("BLS12_381_Fq", 196608): 10,
+        ("BLS12_381_Fr", 262144): 5, ("BLS12_381_Fq", 36864): 3, ("BLS12_381_Fq", 73728): 3,
+        ("BLS12_381_Fq", 55296): 2, ("BLS12_381_Fq", 110592): 2, ("BLS12_381_Fq", 221184): 2,
+        ("BLS12_381_Fq", 294912): 2, ("BLS12_381_Fq", 49152): 1, ("BLS12_381_Fq", 98304): 1,
+        ("BLS12_381_Fr", 131074): 1,
+    },
+    "plonk_bn254": {
+        ("BN254_Fr", 65536): 66, ("BN254_Fq", 147456): 42, ("BN254_Fq", 442368): 40,
+        ("BN254_Fr", 262144): 40, ("BN254_Fr", 131072): 23, ("BN254_Fr", 524288): 21,
+        ("BN254_Fq", 294912): 20, ("BN254_Fr", 393216): 17, ("BN254_Fq", 49152): 11,
+        ("BN254_Fq", 98304): 10, ("BN254_Fr", 32774): 7, ("BN254_Fq", 36864): 6,
+        ("BN254_Fq", 73728): 6, ("BN254_Fr", 32770): 5, ("BN254_Fq", 55296): 4,
+        ("BN254_Fq", 110592): 4, ("BN254_Fq", 221184): 4, ("BN254_Fr", 32768): 4,
+        ("BN254_Fr", 32772): 4, ("BN254_Fr", 32773): 4, ("BN254_Fr", 32769): 3,
+        ("BN254_Fr", 32771): 2, ("BN254_Fr", 98310): 1, ("BN254_Fr", 196608): 1,
+        ("BN254_Fr", 229397): 1, ("BN254_Fr", 491610): 1,
+    },
+}
 
 # Peak rates of one NVIDIA H100 SXM (dense): HBM3 3.35 TB/s and int8 tensor
 # cores 1,979 TOP/s (NVIDIA's data sheet); 32-bit integer multiply-adds at 64
@@ -121,6 +149,7 @@ class Ctx:
         self.kernels = {}
         self.paths = {}
         self.detail = {}
+        self.libs = None  # the libraries phase 0 builds (None: all)
 
     def sync(self):
         if self.device.type == "cuda":
@@ -208,9 +237,9 @@ def phase_build(ctx):
     if ctx.device.type == "cuda":
         ctx.detail["smi"] = smi_line()
         t0 = time.perf_counter()
-        kernels.build()
+        kernels.build(ctx.libs)
         build_s = time.perf_counter() - t0
-        ptxas = {name: kernels.ptxas_report(name) for name in kernels._SOURCES}
+        ptxas = {name: kernels.ptxas_report(name) for name in ctx.libs or kernels._SOURCES}
         ctx.detail["ptxas"] = ptxas
         ctx.detail["build_s"] = build_s
         log(f"[0] card: {ctx.detail['smi']}")
@@ -237,15 +266,21 @@ def _random_elems(fs, nl, n, rng):
     return limbs.astype(np.int32)
 
 
+def _moduli():
+    from zksnake_tpu_torch import (BLS12_381_MODULUS, BLS12_381_SCALAR_FIELD, BN254_MODULUS,
+                                   BN254_SCALAR_FIELD)
+
+    return {"BN254_Fr": BN254_SCALAR_FIELD, "BN254_Fq": BN254_MODULUS,
+            "BLS12_381_Fr": BLS12_381_SCALAR_FIELD, "BLS12_381_Fq": BLS12_381_MODULUS}
+
+
 def _field_operands(ctx, seed):
     """[(name, fs, a, b)] at K1_SHAPES (toy widths in a rehearsal)."""
     import numpy as np
 
-    from zksnake_tpu_torch import BLS12_381_MODULUS, BN254_MODULUS, BN254_SCALAR_FIELD
     from zksnake_tpu_torch.backend.field import FieldSpec
 
-    mods = {"BN254_Fr": BN254_SCALAR_FIELD, "BN254_Fq": BN254_MODULUS,
-            "BLS12_381_Fq": BLS12_381_MODULUS}
+    mods = _moduli()
     rng = np.random.default_rng(seed)
     out = []
     for name, nl, logn in K1_SHAPES:
@@ -303,10 +338,7 @@ def phase_k3(ctx):
         k1b = ctx.time_ms(lambda: kernels.mont_mul(fs, a, b), 20)
         k3b = ctx.time_ms(lambda: kernels.mont_mul_mma(fs, a, b), 20)
         plain_ms = ctx.time_ms(lambda: kernels.mont_mul_mma_plain(fs, a, b), 2)
-        nb = 2 * nl
-        nw = nl // 2
-        bms, bby = bound(3 * nl * 4 * n, [(2 * 3 * nb * nb * n, INT8_TC_OPS_S),
-                                          (2 * nw * nw * n, IMAD_OPS_S)])
+        bms, bby = _k3_bound(nl, n)
         ms, k1_ms = (k3a + k3b) / 2, (k1a + k1b) / 2
         rows.append({"field": name, "shape": [nl, n], "max_abs_err": err, "ms": ms,
                      "k1_ms": k1_ms, "turns_ms": [k3a, k1a, k1b, k3b], "plain_ms": plain_ms,
@@ -316,6 +348,103 @@ def phase_k3(ctx):
             f"{k3b:.4f}), plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({bby})")
     ctx.detail["k3"] = rows
     ctx.kernels["mont_mul_mma"] = rows[0]
+    _k3_path_widths(ctx)
+
+
+def _k3_bound(nl, n):
+    """K3's bound at (nl, n): its limb planes' bytes against its int8
+    tensor-core MACs (two products of 3 NB^2 a lane in all) and the
+    schoolbook's NW^2 32-bit multiply-adds (each counted twice)."""
+    nb, nw = 2 * nl, nl // 2
+    return bound(3 * nl * 4 * n, [(2 * 3 * nb * nb * n, INT8_TC_OPS_S),
+                                  (2 * nw * nw * n, IMAD_OPS_S)])
+
+
+def _k3_path_widths(ctx):
+    """K3 against its plain version and K1, and timed in turns with K1, at
+    every (field, lanes) of K3_PATH_WIDTHS (at most 256 lanes in a
+    rehearsal): eager calls as a prove makes them (ms), and replayed in a
+    CUDA graph, the card's time alone (device_ms). Then each path's loss by
+    the rule, launches x (ms - bound) at each launch's own width, and K1's
+    in the same terms."""
+    import numpy as np
+
+    from zksnake_tpu_torch.backend import kernels
+    from zksnake_tpu_torch.backend.field import FieldSpec
+
+    mods = _moduli()
+    rng = np.random.default_rng(0x3A)
+    timed = {}
+    for key in sorted({k for hist in K3_PATH_WIDTHS.values() for k in hist}):
+        name, width = key
+        fs = FieldSpec.get(mods[name])
+        nl, n = fs.nl, width if not ctx.rehearse else min(width, 256)
+        a = ctx.torch.from_numpy(_random_elems(fs, nl, n, rng)).to(ctx.device)
+        b = ctx.torch.from_numpy(_random_elems(fs, nl, n, rng)[:, ::-1].copy()).to(ctx.device)
+        got = kernels.mont_mul_mma(fs, a, b)
+        if not (ctx.torch.equal(got, kernels.mont_mul_mma_plain(fs, a, b))
+                and ctx.torch.equal(got, kernels.mont_mul(fs, a, b))):
+            raise AssertionError(f"K3 {name} at {n} lanes: kernel != plain or K1")
+        k3a = ctx.time_ms(lambda: kernels.mont_mul_mma(fs, a, b), 20)
+        k1a = ctx.time_ms(lambda: kernels.mont_mul(fs, a, b), 20)
+        k1b = ctx.time_ms(lambda: kernels.mont_mul(fs, a, b), 20)
+        k3b = ctx.time_ms(lambda: kernels.mont_mul_mma(fs, a, b), 20)
+        g3a = ctx.graph_ms(lambda: kernels.mont_mul_mma(fs, a, b), 20)
+        g1a = ctx.graph_ms(lambda: kernels.mont_mul(fs, a, b), 20)
+        g1b = ctx.graph_ms(lambda: kernels.mont_mul(fs, a, b), 20)
+        g3b = ctx.graph_ms(lambda: kernels.mont_mul_mma(fs, a, b), 20)
+        timed[key] = {"field": name, "lanes": n, "ms": (k3a + k3b) / 2, "k1_ms": (k1a + k1b) / 2,
+                      "turns_ms": [k3a, k1a, k1b, k3b], "device_ms": (g3a + g3b) / 2,
+                      "k1_device_ms": (g1a + g1b) / 2, "device_turns_ms": [g3a, g1a, g1b, g3b],
+                      "bound_ms": _k3_bound(nl, n)[0]}
+    loss = {}
+    for path, hist in K3_PATH_WIDTHS.items():
+        rows = sorted(hist.items(), key=lambda kv: (-kv[1], kv[0]))
+        p = loss[path] = {"launches": sum(hist.values()),
+                          "widths": [dict(timed[k], launches=c) for k, c in rows]}
+        for col in ("ms", "k1_ms", "device_ms", "k1_device_ms"):
+            p[f"{col}_loss"] = sum(c * (timed[k][col] - timed[k]["bound_ms"]) for k, c in rows)
+        log(f"[2] K3 on the flagged {path} warm prove: {p['launches']} launches, loss by the "
+            f"rule {p['ms_loss']:.4f} ms eager, {p['device_ms_loss']:.4f} ms on the card (K1 "
+            f"at the same widths {p['k1_ms_loss']:.4f} / {p['k1_device_ms_loss']:.4f} ms)")
+        for k, c in rows:
+            t = timed[k]
+            turns = " ".join(f"{v:.4f}" for v in t["turns_ms"] + t["device_turns_ms"])
+            log(f"[2]   {t['field']} {t['lanes']} lanes x {c}: K3 {t['ms']:.4f} ms eager, "
+                f"{t['device_ms']:.4f} on the card; K1 {t['k1_ms']:.4f}, {t['k1_device_ms']:.4f} "
+                f"(turns {turns}); bound {t['bound_ms']:.4f} ms")
+    ctx.detail["k3_paths"] = loss
+
+
+class k3_widths:
+    """K3's launches by (field, lanes) inside the block, counted by
+    wrapping kernels.mont_mul_mma (the package keeps no such count)."""
+
+    def __enter__(self):
+        from zksnake_tpu_torch.backend import kernels
+
+        names = {p: name for name, p in _moduli().items()}
+        self.kernels, self.orig, self.hist = kernels, kernels.mont_mul_mma, collections.Counter()
+
+        def spy(fs, a, b):
+            self.hist[(names[fs.p], a.shape[1])] += 1
+            return self.orig(fs, a, b)
+
+        kernels.mont_mul_mma = spy
+        return self.hist
+
+    def __exit__(self, *exc):
+        self.kernels.mont_mul_mma = self.orig
+
+
+def _check_k3_widths(ctx, path, hist):
+    """The flagged prove's K3 widths are K3_PATH_WIDTHS[path] (on the card;
+    a rehearsal's toy sizes launch K3 nowhere)."""
+    got = sorted(hist.items(), key=lambda kv: (-kv[1], kv[0]))
+    ctx.detail[f"k3_widths_{path}"] = got
+    log(f"K3 widths of the flagged {path} warm prove (field, lanes): launches: {got}")
+    if ctx.device.type == "cuda" and dict(hist) != K3_PATH_WIDTHS[path]:
+        raise AssertionError(f"K3_PATH_WIDTHS[{path!r}] is stale: the prove launched {got}")
 
 
 def _tiled_points(gs, curve_mod, n, device):
@@ -791,10 +920,11 @@ def phase_bls12_381(ctx):
     proof, t_warm, launches = _prove_counted(ctx, prove, protocol, seed)
     phases_off = metrics.report()
     metrics.reset()
-    with flag_env("1"):
+    with flag_env("1"), k3_widths() as widths:
         proof_mma, t_mma, launches_mma = _prove_counted(ctx, prove, protocol, seed)
     phases_on = metrics.report()
     metrics.enable(False)
+    _check_k3_widths(ctx, "groth16_bls12_381", widths)
     if proof.to_bytes() != proof_mma.to_bytes():
         raise AssertionError("BLS12-381: the proof differs with ZKSNAKE_MXU_MONTMUL=1")
     t0 = time.perf_counter()
@@ -849,7 +979,7 @@ def phase_plonk(ctx):
         proof, t_warm, launches = _prove_counted(ctx, prove, protocol, seed)
         phases_off = metrics.report()
         metrics.reset()
-        with flag_env("1"):
+        with flag_env("1"), k3_widths() as widths:
             proof_mma, t_mma, launches_mma = _prove_counted(ctx, prove, protocol, seed)
         phases_on = metrics.report()
         metrics.enable(False)
@@ -857,6 +987,7 @@ def phase_plonk(ctx):
         ok = plonk.verify(proof, pub)
         t_verify = time.perf_counter() - t0
         ok_mma = plonk.verify(proof_mma, pub)
+    _check_k3_widths(ctx, "plonk_bn254", widths)
     if proof.to_bytes() != proof_mma.to_bytes():
         raise AssertionError("PlonK: the proof differs with ZKSNAKE_MXU_MONTMUL=1")
     if not (ok and ok_mma):
@@ -1085,6 +1216,8 @@ def main():
         return 2
     ctx = Ctx("cpu" if args.rehearse else "cuda", args.rehearse)
     phases = [int(p) for p in args.phases.split(",")]
+    if max(phases) <= 2:
+        ctx.libs = ["montmul", "montmul_mma"]
     phase_s = {}
     for i in phases:
         t0 = time.perf_counter()

@@ -298,6 +298,31 @@ def test_mxu_flag_gives_same_proof(run, monkeypatch):
     assert calls
 
 
+def test_circom_import_equals_jax_and_proves():
+    """R1CS.from_file, the Circom importer (parser.py), on
+    tests/stub/test_poseidon.r1cs and .sym: the constraint matrices and the
+    solved witness equal the JAX package's as integers
+    (tests/test_groth16.py:93), and a port prove on them verifies."""
+    def load(front):
+        r1cs = front.R1CS.from_file(str(REPO / "tests" / "stub" / "test_poseidon.r1cs"),
+                                    str(REPO / "tests" / "stub" / "test_poseidon.sym"))
+        solved = r1cs.solve({"main.a": 1, "main.b": 2, "main.c": 3})
+        r1cs.compile()
+        return r1cs, r1cs.generate_witness(solved)
+
+    mine, (pub, priv) = load(torch_front)
+    ref, witness = load(jax_front)
+    for name in "ABC":
+        got, want = getattr(mine, name), getattr(ref, name)
+        assert (got.n_row, got.n_col, got.p) == (want.n_row, want.n_col, want.p)
+        assert got.triplets == want.triplets
+    assert (pub, priv) == witness
+    assert mine.is_sat(pub, priv)
+    g16 = Groth16(mine, device="cpu")
+    g16.setup()
+    assert g16.verify(g16.prove(pub, priv), pub)
+
+
 def test_cuda_device_is_never_swapped_for_the_cpu():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

@@ -53,7 +53,7 @@ def random_elems(fs, n, seed):
     rng = np.random.default_rng(seed)
     limbs = rng.integers(0, 1 << 16, size=(fs.nl, n), dtype=np.int64)
     limbs[-1] = rng.integers(0, int(fs.p_limbs[-1]), size=n)
-    limbs[:, :3] = fs.raw_to_host([0, 1, fs.p - 1])
+    limbs[:, :3] = fs.raw_to_host([0, 1, fs.p - 1])[:, :n]
     return torch.from_numpy(limbs.astype(np.int32))
 
 
@@ -70,12 +70,14 @@ def test_mont_mul_kernel_matches_plain(card, p):
 
 
 @pytest.mark.parametrize("p", FIELDS)
-def test_mont_mul_mma_kernel_matches_plain(card, p):
-    """K3 (ragged edge included: 4099 lanes is not a multiple of the block)
-    against its plain version and against K1."""
+@pytest.mark.parametrize("n", [1, 31, 4099, (1 << 17) + 3])
+def test_mont_mul_mma_kernel_matches_plain(card, p, n):
+    """K3 against its plain version and against K1 at the edges of its
+    tiling: one lane, a ragged warp tile (31), a ragged block (4099) and a
+    grid-stride loop over more tiles than one wave of blocks (2^17 + 3)."""
     fs = FieldSpec.get(p)
-    a = random_elems(fs, 4099, 3).to(card)
-    b = random_elems(fs, 4099, 4).flip(1).contiguous().to(card)
+    a = random_elems(fs, n, 3).to(card)
+    b = random_elems(fs, n, 4).flip(1).contiguous().to(card)
     before = kernels.LAUNCHES["mont_mul_mma"]
     got = kernels.mont_mul_mma(fs, a, b)
     torch.cuda.synchronize()

@@ -187,6 +187,48 @@ def test_jax_key_carried_across_gives_same_proof(ref, monkeypatch):
     assert other.verify(proof, pub)
 
 
+def test_external_tau_resume_equals_jax(ref):
+    """setup(g1_tau=, g2_tau=) resumes from an earlier ceremony's powers of
+    tau (plonk/protocol.py's external-SRS path; tests/test_plonk.py:88 in
+    the JAX package): from the reference setup's SRS the port derives the
+    JAX package's keys and, under the same blinds, its proof."""
+    curve = ref["curve"]
+    tp, pub, priv = gate_circuit(torch_front, curve)
+    plonk = Plonk(tp, curve, device="cpu")
+    plonk.setup(g1_tau=ref["port"].G1_tau, g2_tau=ref["port"].G2_tau)
+    assert plonk.G1_tau == ref["port"].G1_tau
+    assert plonk.proving_key.to_bytes() == ref["jax"].proving_key.to_bytes()
+    assert plonk.verifying_key.to_bytes() == ref["jax"].verifying_key.to_bytes()
+    proof = plonk._prove_with_blinding(pub, priv, ref["blinds"], force_host=True)
+    assert proof.to_bytes() == ref["want"]
+    assert plonk.verify(proof, pub)
+
+
+def test_external_tau_validation_as_jax(ref):
+    """An SRS of fewer than n + 6 powers, or a g1_tau without its g2_tau,
+    raises ValueError in both packages (tests/test_plonk.py:108)."""
+    curve = ref["curve"]
+    for front, cls, srs in ((torch_front, lambda c: Plonk(c, curve, device="cpu"), ref["port"]),
+                            (jax_front, lambda c: JaxPlonk(c, curve), ref["jax"])):
+        circuit, _, _ = gate_circuit(front, curve)
+        with pytest.raises(ValueError, match="too big"):
+            cls(circuit).setup(g1_tau=srs.G1_tau[: circuit.length + 5], g2_tau=srs.G2_tau)
+        with pytest.raises(ValueError, match="g2_tau is required"):
+            cls(circuit).setup(g1_tau=srs.G1_tau)
+
+
+def test_wrong_field_raises_as_jax(ref):
+    """A Plonkish compiled for one curve's field, handed to Plonk with the
+    other curve, raises ValueError in both packages (PARITY.md #6)."""
+    other = {"BN254": "BLS12_381", "BLS12_381": "BN254"}[ref["curve"]]
+    tp, _, _ = gate_circuit(torch_front, ref["curve"])
+    jp, _, _ = gate_circuit(jax_front, ref["curve"])
+    with pytest.raises(ValueError, match="different curve"):
+        Plonk(tp, other, device="cpu")
+    with pytest.raises(ValueError, match="different curve"):
+        JaxPlonk(jp, other)
+
+
 def test_verify_rejects_tampered_proof(ref):
     curve = ref["curve"]
     proof = Proof.from_bytes(ref["want"], curve)

@@ -161,6 +161,33 @@ class FieldSpec:
             self._dev[key] = torch.from_numpy(flat.astype(np.uint8)).to(device)
         return self._dev[key]
 
+    def mma_frags(self, device):
+        """K3's constant B fragments in the order csrc/mma_frag.cuh reads
+        them: an (NF, 32, 2) int32 tensor on `device` whose [f, lane] pair
+        is lane (g, q) = (lane // 4, lane % 4)'s two 32-bit registers of the
+        f-th tile of kernels.mma_frag_tiles: bytes 4q..4q+3 and
+        16+4q..16+4q+3 of the tile's k32 step in B's column g (output byte
+        8 nt + g), the lowest byte first (m16n8k32 u8 B fragments)."""
+        key = ("mma_frags", str(device))
+        if key not in self._dev:
+            nb = 2 * self.nl
+            pmat, ppmat = kernels._reduction_mats(self.p, self.nl)
+            kpad = 32 * ((nb + 31) // 32)
+            mats = []
+            for m in (pmat[:, :nb], ppmat[: 2 * nb]):
+                padded = np.zeros((m.shape[0], kpad), dtype=np.uint32)
+                padded[:, :nb] = m
+                mats.append(padded)
+            shifts = np.uint32(8) * np.arange(4, dtype=np.uint32)
+            tab = []
+            for prod, nt, ks in kernels.mma_frag_tiles(self.nl):
+                blk = mats[prod][8 * nt:8 * nt + 8, 32 * ks:32 * ks + 32]  # [g, byte]
+                words = (blk.reshape(8, 2, 4, 4) << shifts).sum(axis=3, dtype=np.uint32)
+                tab.append(words.transpose(0, 2, 1).reshape(32, 2))  # [4g + q, half]
+            flat = np.ascontiguousarray(np.stack(tab)).view(np.int32)
+            self._dev[key] = torch.from_numpy(flat).to(device)
+        return self._dev[key]
+
     def words(self, which):
         """ctypes uint32 array of 32-bit words ("p" or "one") for the kernels."""
         if which not in self._words:

@@ -4,12 +4,14 @@ their launch counters.
 K1 `mont_mul` (csrc/montmul.cu) replaces
 zksnake_tpu/backend/pallas_field.py::_make_kernel; K2 `bucket_accumulate`
 (csrc/bucket.cu) replaces pallas_field.py::bucket_accumulate_pallas; K3
-`mont_mul_mma` (csrc/montmul_mma.cu) replaces pallas_field.py::_make_kernel_mxu
-(body mxu_field.py::mont_mul_mxu_cols), the Montgomery product whose two
+`mont_mul_mma` (csrc/montmul_mma.cu on the warp-level product of
+csrc/mma_frag.cuh) replaces pallas_field.py::_make_kernel_mxu (body
+mxu_field.py::mont_mul_mxu_cols), the Montgomery product whose two
 reduction products run on the matrix unit; K2m `bucket_accumulate_mma`
 (csrc/bucket_mma.cu) replaces the same bucket_accumulate_pallas under
-ZKSNAKE_MXU_MONTMUL=1, where every product of its body is K3's: K2's chunk
-and fold kernels (csrc/bucket_chunks.cuh) on the tensor-core product.
+ZKSNAKE_MXU_MONTMUL=1, where every product of its body is K3's arithmetic
+(on WMMA tiles in shared memory): K2's chunk and fold kernels
+(csrc/bucket_chunks.cuh) on the tensor-core product.
 
 S1-S8 (csrc/relayout.cu) replace the Pallas kernels of
 scripts/bench_sortdma.py, the relayout probes of the MSM table; their
@@ -169,6 +171,9 @@ def ptxas_report(name):
                     i += int(j.group())
                 ident = idents[-1] if idents else mangled
                 field = "Fp2" if "Fp2I" in mangled else "Fp" if "FpI" in mangled else ""
+                words = re.match(r"ILi(\d+)E", mangled[i:])  # K1's and K3's <NW>
+                if ident.startswith("montmul") and words:
+                    field = f"NW={words.group(1)}"
                 tags = [field] * bool(field) + ["cold"] * ("Lb1E" in mangled)
                 kernel = ident + (f"<{', '.join(tags)}>" if tags else "")
                 spills = 0
@@ -343,6 +348,23 @@ def _reduction_mats(p: int, nl: int):
     return PMAT, PPMAT
 
 
+def mma_frag_tiles(nl):
+    """[(product, nt, ks)]: the tiles of K3's constant B fragments in the
+    order of its table (csrc/mma_frag.cuh). Product 0 is PMAT's NB x NB
+    block, 1 PPMAT's 2NB x NB block, as B = the block's transpose: n8 tile
+    nt is output bytes 8nt..8nt+7, k32 step ks input bytes 32ks..32ks+31
+    (NB = 48 padded to 64). A tile that holds no byte of the band
+    0 <= k - i < NB (above PMAT's diagonal, PPMAT's corners) has no entry:
+    12 tiles for nl = 16, 26 for nl = 24."""
+    nb = 2 * nl
+
+    def live(nt, ks):
+        return 32 * ks < nb and 32 * ks <= 8 * nt + 7 and 8 * nt - min(32 * ks + 31, nb - 1) < nb
+
+    return [(prod, nt, ks) for prod, ntiles in ((0, nb // 8), (1, nb // 4))
+            for nt in range(ntiles) for ks in range((nb + 31) // 32) if live(nt, ks)]
+
+
 def mont_mul_mma_plain(fs, a, b):
     """Plain version of K3 on any device: the SOS Montgomery product of
     zksnake_tpu/backend/mxu_field.py::mont_mul_mxu_cols. a, b (nl, N) int32
@@ -404,13 +426,13 @@ def mont_mul_mma(fs, a, b):
     if a.ndim != 2 or a.shape[0] != fs.nl:
         raise ValueError(f"mont_mul_mma: expected ({fs.nl}, N), got {tuple(a.shape)}")
     lib = _lib("montmul_mma")
-    mats = fs.mma_tiles(dev)
+    frags = fs.mma_frags(dev)
     out = torch.empty_like(a)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.zk_mont_mul_mma(
             a.data_ptr(), b.data_ptr(), out.data_ptr(), a.shape[1], fs.nl,
-            ctypes.addressof(fs.words("p")), mats.data_ptr(), stream,
+            ctypes.addressof(fs.words("p")), frags.data_ptr(), stream,
         )
     LAUNCHES["mont_mul_mma"] += 1
     _check(rc, "mont_mul_mma")
