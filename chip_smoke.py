@@ -11,7 +11,7 @@ card.
 Phases, one line each or more:
   0. the card (nvidia-smi name and power limit), torch and CUDA versions, the
      kernels' build from zksnake_tpu_torch/csrc (registers and spills; only
-     K1's and K3's libraries where no phase after 2 runs);
+     the libraries of the chosen phases, PHASE_LIBS, and K1's);
   1. K1 (mont_mul) against its plain version, bit for bit, at (16, 2^20) for
      BN254 Fr and Fq and (24, 2^18) for BLS12-381 Fq, with 0, 1, p-1 lanes;
   2. K3 (mont_mul_mma) against its plain version, bit for bit, at the same
@@ -59,7 +59,11 @@ Phases, one line each or more:
      zksnake_tpu_torch.scripts.debug_g2_block at B = 1024 lanes (one S9
      launch each, checked by the script against its plain version); then
      each variant timed (a replayed CUDA graph of launches, and the eager
-     call) beside its bound and its plain version.
+     call) beside its bound, the launch floor (one tiny PyTorch launch in
+     a replayed graph) and its plain version; the add at 1024, 2^14 and
+     2^17 lanes checked against its plain version and timed; the add on
+     1024 pairs of real G2 points, against the plain version and the
+     host's sums.
 
 It exits non-zero on any failure, when no CUDA device is present, and when
 jax or any module of zksnake_tpu was imported. The last four lines are the
@@ -86,6 +90,9 @@ MSM_LOGN = 20
 PLONK_LOGN = 15
 RELAYOUT_LOGN = 20  # bench_sortdma's n
 G2_BLOCK_LANES = 1024  # debug_g2_mosaic.py's B
+# S9's add: the script's width and two wider ones, to a reduction's 2^17
+# points
+G2_ADD_WIDTHS = (1024, 1 << 14, 1 << 17)
 # K3's launches by (field, lanes) in the flagged warm proves of phases 11
 # (Groth16 BLS12-381, 2^17 constraints: 198) and 12 (PlonK BN254, 2^15
 # gates: 347), as those phases count them (they fail if the count differs)
@@ -149,7 +156,7 @@ class Ctx:
         self.kernels = {}
         self.paths = {}
         self.detail = {}
-        self.libs = None  # the libraries phase 0 builds (None: all)
+        self.libs = []  # the libraries phase 0 builds
 
     def sync(self):
         if self.device.type == "cuda":
@@ -239,7 +246,7 @@ def phase_build(ctx):
         t0 = time.perf_counter()
         kernels.build(ctx.libs)
         build_s = time.perf_counter() - t0
-        ptxas = {name: kernels.ptxas_report(name) for name in ctx.libs or kernels._SOURCES}
+        ptxas = {name: kernels.ptxas_report(name) for name in ctx.libs}
         ctx.detail["ptxas"] = ptxas
         ctx.detail["build_s"] = build_s
         log(f"[0] card: {ctx.detail['smi']}")
@@ -1122,6 +1129,10 @@ def _g2_block_bound(variant, lanes):
     return bound(4 * 16 * lanes * (n_in + n_out), [(prods * lanes * cios_imads(8), IMAD_OPS_S)])
 
 
+def _same(torch, got, want):
+    return len(got) == len(want) and all(torch.equal(g, w) for g, w in zip(got, want))
+
+
 def phase_g2_block(ctx):
     from zksnake_tpu_torch.backend import kernels
     from zksnake_tpu_torch.scripts import debug_g2_block as dg
@@ -1138,13 +1149,19 @@ def phase_g2_block(ctx):
         raise AssertionError(f"debug_g2_block: {launches['g2_block']} S9 launches for "
                              f"{len(variants)} variants")
     ctx.paths["debug_g2_block"] = launches
+    # the least a one-launch probe can take here: one tiny PyTorch launch
+    tiny = torch.zeros(1, device=ctx.device)
+    floor_ms = ctx.graph_ms(lambda: tiny.add_(1), 200)
+    regs = {k: (r, sp) for k, r, sp in ctx.detail.get("ptxas", {}).get("g2_block", [])}
+    log(f"[14] launch floor {floor_ms:.4f} ms (graph replay of one 1-element add_); "
+        f"S9's registers, spills: {regs}")
     rows = []
     for v, r in zip(variants, runs):
         ins = dg.inputs(v, lanes, ctx.device)
         got = kernels.g2_block(v, ins)
         want = kernels.g2_block_plain(v, ins)
         ctx.sync()
-        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        if not _same(torch, got, want):
             raise AssertionError(f"g2_block {v}: kernel != plain")
         # one launch is shorter than the wrapper's host work, so the
         # kernel's own time comes from a replayed graph of launches; the
@@ -1155,11 +1172,38 @@ def phase_g2_block(ctx):
         bms, bby = _g2_block_bound(v, lanes)
         rows.append({"variant": v, "lanes": lanes, "max_abs_err": 0, "ms": ms,
                      "call_ms": call_ms, "script_s": r["s"], "plain_ms": plain_ms,
-                     "bound_ms": bms, "bound_by": bby})
+                     "bound_ms": bms, "bound_by": bby, "floor_ms": floor_ms})
         log(f"[14] g2_block {v} ({lanes} lanes): bit-identical to plain; kernel {ms:.4f} ms "
             f"(graph replay; eager call {call_ms:.4f} ms), plain {plain_ms:.4f} ms, "
-            f"bound {bms:.6f} ms ({bby})")
+            f"bound {bms:.6f} ms ({bby}), floor {floor_ms:.4f} ms")
     ctx.detail["g2_block"] = rows
+    # the add at G2_ADD_WIDTHS: checked against the plain version once and
+    # timed beside its bound
+    widths = []
+    for n in G2_ADD_WIDTHS if not ctx.rehearse else (64, 100):
+        ins = dg.inputs("addaff", n, ctx.device)
+        want = kernels.g2_block_plain("addaff", ins)
+        if not _same(torch, kernels.g2_block("addaff", ins), want):
+            raise AssertionError(f"g2_block addaff at {n} lanes: kernel != plain")
+        ms = ctx.graph_ms(lambda: kernels.g2_block("addaff", ins), 20)
+        call_ms = ctx.time_ms(lambda: kernels.g2_block("addaff", ins), 20)
+        bms, bby = _g2_block_bound("addaff", n)
+        widths.append({"lanes": n, "ms": ms, "call_ms": call_ms, "bound_ms": bms,
+                       "bound_by": bby, "pct_of_bound": 100 * bms / ms})
+        log(f"[14] g2_block addaff ({n} lanes): bit-identical to plain; kernel {ms:.4f} ms "
+            f"(graph replay; eager call {call_ms:.4f} ms), bound {bms:.6f} ms ({bby}, "
+            f"{100 * bms / ms:.2f}%)")
+    ctx.detail["g2_add_widths"] = widths
+    # real G2 points (the identity, P = Q, P = -Q, Z1 != 1): the kernel
+    # equals the plain version and the sums are the host's
+    planes, sums = dg.point_inputs(lanes, ctx.device)
+    got = kernels.g2_block("addaff", planes)
+    if not _same(torch, got, kernels.g2_block_plain("addaff", planes)):
+        raise AssertionError("g2_block addaff on G2 points: kernel != plain")
+    if [p.to_bytes() for p in dg.points_of(got)] != [p.to_bytes() for p in sums]:
+        raise AssertionError("g2_block addaff on G2 points: wrong sums")
+    log(f"[14] g2_block addaff on {lanes} BN254 G2 point pairs: bit-identical to plain, "
+        "every sum the host's")
     # the kernels line carries the add (the probe's first variant); every
     # variant is on the details line
     ctx.kernels["g2_block"] = dict(rows[0], library_ms=None,
@@ -1169,6 +1213,15 @@ def phase_g2_block(ctx):
 PHASES = [phase_build, phase_k1, phase_k3, phase_k2, phase_k2m, phase_msm, phase_msm_mma,
           phase_msm_g2, phase_fixtures, phase_plonk_fixtures, phase_bn254, phase_bls12_381,
           phase_plonk, phase_relayout, phase_g2_block]
+
+# the kernel libraries each phase launches: phase 0 builds those of the
+# chosen phases, and K1's always (every wrapper reports a launch error with
+# its error strings)
+_K2_LIBS = ("bucket16", "bucket24")
+_K2M_LIBS = ("bucket_mma16", "bucket_mma24")
+_PROVE_LIBS = ("montmul_mma",) + _K2_LIBS + _K2M_LIBS
+PHASE_LIBS = [(), (), ("montmul_mma",), _K2_LIBS, ("montmul_mma",) + _K2_LIBS + _K2M_LIBS,
+              *[_PROVE_LIBS] * 8, ("relayout",), ("g2_block",)]
 
 # kernel -> (source, the TPU kernel it replaces, the main-path run its
 # launch count is read from)
@@ -1216,8 +1269,7 @@ def main():
         return 2
     ctx = Ctx("cpu" if args.rehearse else "cuda", args.rehearse)
     phases = [int(p) for p in args.phases.split(",")]
-    if max(phases) <= 2:
-        ctx.libs = ["montmul", "montmul_mma"]
+    ctx.libs = ["montmul"] + sorted({lib for i in phases for lib in PHASE_LIBS[i]})
     phase_s = {}
     for i in phases:
         t0 = time.perf_counter()

@@ -8,9 +8,15 @@ get_group_spec(ec_bn254._curve, 2) with its add_affine, F.mul_many, F.mul,
 F.select and F.is_zero, and zksnake_tpu.backend.field.mont_mul on the
 stacked tensor. addaff1 runs add_affine with DevFq2.mul_many patched to the
 original's per-pair products, as the script does. Field arithmetic is
-exact, so the comparison is limb for limb. The kernel itself runs only on a
-card (tests/test_torch_kernels_cuda.py).
+exact, so the comparison is limb for limb. The add also runs on real G2
+points (the identity, P = Q, P = -Q, Z1 != 1), and its kernel's schedule
+(kernels.g2_add_schedule, the table csrc/g2_add_schedule.cuh is written
+from) runs level by level through the plain field ops against the plain
+add. The kernel itself runs only on a card
+(tests/test_torch_kernels_cuda.py).
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -104,6 +110,70 @@ def test_inputs_are_canonical():
     for t in debug_g2_block.inputs("addaff", LANES, "cpu"):
         vals = fs.raw_from_host(t)
         assert max(vals) < fs.p and vals[:3] == [0, 1, fs.p - 1]
+
+
+def jax_add(planes):
+    vals = [jnp.asarray(t.numpy().astype(np.uint32)) for t in planes]
+    return jax_outputs("addaff", vals)
+
+
+@pytest.mark.parametrize("lanes", [1, 3, 20])
+def test_add_on_real_points_matches_jax(lanes):
+    """Real BN254 G2 points: the port's add limb for limb with the JAX
+    package's GroupSpec.add_affine, and the right sums as points."""
+    planes, want = debug_g2_block.point_inputs(lanes, "cpu")
+    got = kernels.g2_block("addaff", planes)
+    for g, w in zip(got, jax_add(planes)):
+        np.testing.assert_array_equal(g.numpy().view(np.uint32), np.asarray(w))
+    sums = debug_g2_block.points_of(got)
+    assert [s.to_bytes() for s in sums] == [w.to_bytes() for w in want]
+    if lanes > 2:  # P + (-P): Z3 = 0
+        assert not got[4][:, 2].any() and not got[5][:, 2].any()
+
+
+def test_add_schedule_reads_only_earlier_levels():
+    """Every op of a level reads slots that an earlier level (or the
+    inputs, 3b or the zero slot) wrote, and no two ops of a level write
+    one slot: the kernel's lanes run a level's ops in any order."""
+    sch = kernels.g2_add_schedule()
+    written = set(range(10)) | set(sch["b3"]) | {sch["zero"]}
+    kinds = []
+    for kind, ops in sch["levels"]:
+        kinds.append(kind)
+        dsts = [op[0] for op in ops]
+        assert len(set(dsts)) == len(dsts)
+        reads = {s for op in ops for s in op[1:6]}
+        assert reads <= written and not reads & set(dsts)
+        assert not set(dsts) & ({sch["zero"]} | set(sch["b3"]))
+        assert all(0 <= s < sch["slots"] for op in ops for s in op[:6])
+        if kind == "mul":
+            assert all(op[3] == sch["zero"] and op[6] == 0 for op in ops)
+        written |= set(dsts)
+    assert kinds.count("mul") == 3
+    assert [len(ops) for kind, ops in sch["levels"] if kind == "mul"] == [15, 6, 18]
+
+
+@pytest.mark.parametrize("lanes", [1, 31, 100])
+@pytest.mark.parametrize("source", ["random", "points"])
+def test_add_schedule_model_matches_plain(source, lanes):
+    """The schedule run level by level (kernels.g2_add_model) equals the
+    plain add limb for limb, at ragged widths."""
+    if source == "random":
+        planes = debug_g2_block.inputs("addaff", lanes, "cpu")
+    else:
+        planes, _ = debug_g2_block.point_inputs(lanes, "cpu")
+    gs = kernels._g2_block_spec()
+    got = kernels.g2_add_model(gs.fs, planes, gs.b3("cpu"))
+    want = kernels.g2_block_plain("addaff", planes)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_add_schedule_header_is_current():
+    """csrc/g2_add_schedule.cuh is the table g2_add_schedule() writes
+    (rewrite it with kernels.write_g2_add_schedule())."""
+    with open(os.path.join(kernels.CSRC, "g2_add_schedule.cuh")) as f:
+        assert f.read() == kernels.g2_add_schedule_header()
+
 
 
 def test_g2_block_refuses_what_it_does_not_take():

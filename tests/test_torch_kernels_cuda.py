@@ -374,6 +374,33 @@ def test_g2_block_kernel_matches_plain(card, variant):
         assert torch.equal(g, w)
 
 
+@pytest.mark.parametrize("lanes", [1, 31, 100, 1024, (1 << 14) + 3])
+@pytest.mark.parametrize("variant", ["addaff", "select"])
+def test_g2_block_kernel_matches_plain_at_ragged_widths(card, variant, lanes):
+    """The add (16 lanes an add, 8 adds a block) and the select, at widths
+    that are not a multiple of a block."""
+    ins = debug_g2_block.inputs(variant, lanes, card)
+    got = kernels.g2_block(variant, ins)
+    torch.cuda.synchronize()
+    want = kernels.g2_block_plain(variant, ins)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("lanes", [3, 100, 1024])
+def test_g2_add_on_real_points(card, lanes):
+    """BN254 G2 points: the identity, P = Q, P = -Q and Z1 != 1 lanes; the
+    kernel equals the plain version and its sums are the host's."""
+    planes, sums = debug_g2_block.point_inputs(lanes, card)
+    got = kernels.g2_block("addaff", planes)
+    torch.cuda.synchronize()
+    for g, w in zip(got, kernels.g2_block_plain("addaff", planes)):
+        assert torch.equal(g, w)
+    assert [p.to_bytes() for p in debug_g2_block.points_of(got)] == [
+        p.to_bytes() for p in sums]
+
+
 def test_relayout_wrappers_refuse_what_the_kernels_do_not_take(card):
     x = u32_planes((64, 64), 6).to(card)
     starts = torch.zeros(4, dtype=torch.int32, device=card)

@@ -171,9 +171,11 @@ def ptxas_report(name):
                     i += int(j.group())
                 ident = idents[-1] if idents else mangled
                 field = "Fp2" if "Fp2I" in mangled else "Fp" if "FpI" in mangled else ""
-                words = re.match(r"ILi(\d+)E", mangled[i:])  # K1's and K3's <NW>
+                words = re.match(r"ILi(\d+)E", mangled[i:])  # a template's <int>
                 if ident.startswith("montmul") and words:
                     field = f"NW={words.group(1)}"
+                elif ident.startswith("g2_"):  # S9's kernels: <variant> where templated
+                    field = f"V={words.group(1)}" if words else ""
                 tags = [field] * bool(field) + ["cold"] * ("Lb1E" in mangled)
                 kernel = ident + (f"<{', '.join(tags)}>" if tags else "")
                 spills = 0
@@ -619,9 +621,10 @@ def bucket_accumulate_mma(gs, pts, starts, lens):
 # variant -> (kernel variant id, stack width k, inputs, outputs); the names
 # and the in/out counts of scripts/debug_g2_mosaic.py. addaff1 (the script's
 # add with DevFq2.mul_many patched to per-pair Karatsuba products) is
-# addaff's arithmetic and kernel: a CUDA thread issues its products one by
-# one either way. fq2mul1 (the script's single-pair DevFq2.mul) is fq2mul's
-# product and kernel.
+# addaff's arithmetic and kernel: the kernel spreads each level of the add's
+# products over a lane group, in whatever order the script issued them.
+# fq2mul1 (the script's single-pair DevFq2.mul) is fq2mul's product and
+# kernel.
 G2_BLOCK_VARIANTS = {
     "addaff": (0, 1, 10, 6), "addaff1": (0, 1, 10, 6),
     "fq2mul": (1, 1, 4, 2), "fq2mul1": (1, 1, 4, 2),
@@ -629,6 +632,186 @@ G2_BLOCK_VARIANTS = {
     "fqstack15": (2, 15, 2, 2), "fqstack18": (2, 18, 2, 2),
     "select": (3, 1, 4, 2),
 }
+
+
+# S9's add as levels of independent Fq operations: the complete mixed add of
+# GroupSpec.add_affine (RCB15 Algorithm 8, a = 0), each Fq2 product the
+# Karatsuba product of DevFq2.mul_many: a0 b0, a1 b1, (a0 + a1)(b0 + b1),
+# then (t0 - t1, t2 - t0 - t1). A level is ("mul", ops) or ("lin", ops), an
+# op (dst, A, B) over named Fq elements: in a "mul" level one Montgomery
+# product sum(A) sum(B) of one or two terms each, in a "lin" level
+# sum(A) - sum(B) of at most three terms, A first. Every op gives a
+# canonical element, so the order of independent ops cannot change a limb.
+# Three product levels: X1 X2, Y1 Y2, (X1 + Y1)(X2 + Y2), Y2 Z1, X2 Z1 (15
+# Fq products); 3b t5 and 3b Z1 (6); the six products of the output (18).
+def _kara(d, a, b):
+    """The Fq2 product a b as its three Fq products d0, d1, d2."""
+    return [(d + "0", (a + "a",), (b + "a",)), (d + "1", (a + "b",), (b + "b",)),
+            (d + "2", (a + "a", a + "b"), (b + "a", b + "b"))]
+
+
+def _recombine(d, k):
+    """d = (k0 - k1, k2 - k0 - k1): an Fq2 product from its three."""
+    return [(d + "a", (k + "0",), (k + "1",)), (d + "b", (k + "2",), (k + "0", k + "1"))]
+
+
+def _fq2(d, plus, minus=()):
+    """d = sum(plus) - sum(minus) over Fq2, part by part."""
+    return [(d + c, tuple(t + c for t in plus), tuple(t + c for t in minus)) for c in "ab"]
+
+
+G2_ADD_INPUTS = ("X1a", "X1b", "Y1a", "Y1b", "Z1a", "Z1b", "X2a", "X2b", "Y2a", "Y2b")
+G2_ADD_OUTPUTS = ("X3a", "X3b", "Y3a", "Y3b", "Z3a", "Z3b")
+G2_ADD_LEVELS = (
+    ("lin", _fq2("xy1", ("X1", "Y1")) + _fq2("xy2", ("X2", "Y2"))),
+    ("mul", _kara("p", "X1", "X2") + _kara("r", "Y1", "Y2") + _kara("q", "xy1", "xy2")
+     + _kara("u", "Y2", "Z1") + _kara("v", "X2", "Z1")),
+    ("lin", _recombine("t0", "p") + _recombine("t1", "r") + _recombine("s3", "q")
+     + _recombine("y2z1", "u") + _recombine("x2z1", "v")),
+    ("lin", _fq2("t5", ("x2z1", "X1")) + _fq2("t4", ("y2z1", "Y1"))  # X1 + X2 Z1, Y1 + Y2 Z1
+     + _fq2("t3", ("s3",), ("t0", "t1"))  # X1 Y2 + X2 Y1
+     + _fq2("t03", ("t0", "t0", "t0"))),
+    ("mul", _kara("m", "b3", "t5") + _kara("n", "b3", "Z1")),
+    ("lin", _recombine("y3p", "m") + _recombine("t2b", "n")),
+    ("lin", _fq2("z3s", ("t1", "t2b")) + _fq2("t1m", ("t1",), ("t2b",))),
+    ("mul", _kara("xl", "t3", "t1m") + _kara("xr", "t4", "y3p") + _kara("yl", "y3p", "t03")
+     + _kara("yr", "t1m", "z3s") + _kara("zl", "z3s", "t4") + _kara("zr", "t03", "t3")),
+    ("lin", _recombine("xl", "xl") + _recombine("xr", "xr") + _recombine("yl", "yl")
+     + _recombine("yr", "yr") + _recombine("zl", "zl") + _recombine("zr", "zr")),
+    ("lin", _fq2("X3", ("xl",), ("xr",)) + _fq2("Y3", ("yl", "yr")) + _fq2("Z3", ("zl", "zr"))),
+)
+
+
+@functools.lru_cache(maxsize=None)
+def g2_add_schedule():
+    """S9's add schedule with its Fq slots assigned. A dict: "levels", per
+    level ("mul" or "lin", [(dst, a0, a1, a2, b0, b1, neg)]); "slots", the
+    slab's length in Fq elements; "b3", the slots of 3b (real, u part);
+    "zero", a slot that holds 0 and stands for every absent term; "outputs",
+    the slots of G2_ADD_OUTPUTS. The inputs (G2_ADD_INPUTS) are slots 0-9.
+    A mul op is dst = (a0 + a1)(b0 + b1); a lin op dst = a0 +- a1 +- a2,
+    bit i of neg set where term i + 1 is subtracted. A slot is given again
+    once the last level that reads its value has run."""
+    fixed = list(G2_ADD_INPUTS) + ["b3a", "b3b", "0"]
+    last = {name: len(G2_ADD_LEVELS) for name in G2_ADD_OUTPUTS}
+    for i, (_, ops) in enumerate(G2_ADD_LEVELS):
+        for _, a, b in ops:
+            last.update((t, i) for t in a + b)
+    slot = {name: i for i, name in enumerate(fixed)}
+    z = slot["0"]
+    free, n_slots, out = [], len(fixed), []
+    for i, (kind, lv) in enumerate(G2_ADD_LEVELS):
+        free = sorted(free + [s for name, s in slot.items()
+                              if last.get(name) == i - 1 and name not in fixed[10:]])
+        ops = []
+        for dst, a, b in lv:
+            if kind == "mul":
+                assert 1 <= len(a) <= 2 and 1 <= len(b) <= 2, dst
+                a0, a1 = ([slot[t] for t in a] + [z])[:2]
+                b0, b1 = ([slot[t] for t in b] + [z])[:2]
+                op = [a0, a1, z, b0, b1, 0]
+            else:
+                assert a and len(a) + len(b) <= 3, dst
+                terms = ([slot[t] for t in a + b] + [z, z])[:3]
+                neg = sum(1 << (j - 1) for j in range(len(a), len(a) + len(b)))
+                op = terms + [z, z, neg]
+            if free:
+                slot[dst] = free.pop(0)
+            else:
+                slot[dst], n_slots = n_slots, n_slots + 1
+            ops.append((slot[dst], *op))
+        out.append((kind, ops))
+    return {"levels": out, "slots": n_slots, "b3": (slot["b3a"], slot["b3b"]),
+            "zero": z, "outputs": [slot[n] for n in G2_ADD_OUTPUTS]}
+
+
+def g2_add_schedule_header():
+    """The text of csrc/g2_add_schedule.cuh, g2_add_schedule() for the
+    kernel (tests/test_torch_g2_block.py holds the file to it). Rewrite the
+    file after a change to the schedule with
+    python -c "from zksnake_tpu_torch.backend import kernels as k; k.write_g2_add_schedule()"."""
+    sch = g2_add_schedule()
+    ops, runs = [], []
+    for kind, lv in sch["levels"]:
+        runs.append(f"  LEVEL({int(kind == 'mul')}, {len(ops)}, {len(ops) + len(lv)})")
+        ops += lv
+    return "\n".join([
+        "// S9's add (csrc/g2_block.cu) as levels of independent Fq operations over",
+        "// a slab of Fq slots, from zksnake_tpu_torch/backend/kernels.py",
+        "// (G2_ADD_LEVELS, g2_add_schedule): written by write_g2_add_schedule(),",
+        "// not by hand.",
+        "#pragma once",
+        "",
+        "#include <cstdint>",
+        "",
+        "namespace g2add {",
+        "",
+        "// mul: dst = (a0 + a1)(b0 + b1); lin: dst = a0 +- a1 +- a2, bit i of neg",
+        "// set where term i + 1 is subtracted",
+        "struct alignas(8) Op {",
+        "  uint8_t dst, a0, a1, a2, b0, b1, neg, pad;",
+        "};",
+        "",
+        "// the inputs X1, Y1, Z1, X2, Y2 (real part, then u part) are slots 0-9",
+        f"constexpr int kSlots = {sch['slots']};",
+        f"constexpr int kB3 = {sch['b3'][0]};  // 3b's real part; its u part is kB3 + 1",
+        f"constexpr int kZero = {sch['zero']};",
+        f"constexpr int kOps = {len(ops)};",
+        "",
+        "// X3, Y3, Z3 (real part, then u part)",
+        "__constant__ const uint8_t kOutputs[6] = {" + ", ".join(map(str, sch["outputs"])) + "};",
+        "",
+        "__constant__ const Op kOp[kOps] = {",
+        *[f"    {{{', '.join(map(str, op))}, 0}}," for op in ops],
+        "};",
+        "",
+        "// LEVEL(mul, first op, end op) for each level, in order",
+        "#define ZK_G2_ADD_LEVELS(LEVEL) \\",
+        *[r + " \\" for r in runs[:-1]],
+        runs[-1],
+        "",
+        "}  // namespace g2add",
+        "",
+    ])
+
+
+def write_g2_add_schedule():
+    with open(os.path.join(CSRC, "g2_add_schedule.cuh"), "w") as f:
+        f.write(g2_add_schedule_header())
+
+
+def g2_add_model(fs, ins, b3):
+    """S9's add as its kernel runs it, on any device: g2_add_schedule()
+    level by level through the plain field ops (mont_mul(plain=True),
+    mod_add, mod_sub), every op of a level reading the slab as the level
+    found it. ins: the ten (nl, B) planes of G2_ADD_INPUTS; b3: 3b's two
+    (nl,) Montgomery limb columns. Returns the six output planes."""
+    from .field import mod_add, mod_sub, mont_mul
+
+    sch = g2_add_schedule()
+    slab = [None] * sch["slots"]
+    slab[:10] = ins
+    for s, col in zip(sch["b3"], b3):
+        slab[s] = col[:, None].expand(ins[0].shape)
+    slab[sch["zero"]] = torch.zeros_like(ins[0])
+    for kind, ops in sch["levels"]:
+        before = list(slab)
+
+        def get(i):
+            if before[i] is None:
+                raise AssertionError(f"g2_add_model: slot {i} read before it was written")
+            return before[i]
+
+        for dst, a0, a1, a2, b0, b1, neg in ops:
+            if kind == "mul":
+                v = mont_mul(fs, mod_add(fs, get(a0), get(a1)), mod_add(fs, get(b0), get(b1)),
+                             plain=True)
+            else:
+                v = get(a0)
+                for bit, s in enumerate((a1, a2)):
+                    v = (mod_sub if neg >> bit & 1 else mod_add)(fs, v, get(s))
+            slab[dst] = v
+    return [slab[s] for s in sch["outputs"]]
 
 
 def _g2_block_spec():

@@ -10,12 +10,15 @@ Variants:
   addaff   - one G2 mixed add (curve_ops add_affine; Karatsuba Fq2 products)
   addaff1  - the same add with its Karatsuba products issued pair by pair
              (the original patched DevFq2.mul_many so); on the card it is
-             addaff's kernel, since a thread issues its products one by one
+             addaff's kernel, which spreads each level of the add's products
+             over a lane group whatever order they were issued in
   fq2mul   - a single Fq2 (Karatsuba) product, mul_many of one pair
   fq2mul1  - the same product through DevFq2.mul
   fqmul3d  - one Fq mont_mul on a stacked (nl, 3, B) tensor
   fqstack5 / fqstack6 / fqstack15 / fqstack18 - the same at other stack widths
   select   - Fq2 select + is_zero
+
+point_inputs makes the add's planes from real G2 points instead.
 
 One deviation from the original: it drew 15-bit limbs, which for BN254 are
 often not below p; the field operations take canonical elements, so the
@@ -51,6 +54,64 @@ def inputs(variant, lanes, device, seed=3):
         limbs[:, : special.shape[1]] = special
         out.append(torch.from_numpy(limbs.astype(np.int32)).to(device))
     return out
+
+
+def point_inputs(lanes, device, seed=5):
+    """The add's ten (16, lanes) planes made from real BN254 G2 points, and
+    the host sums P_i + Q_i its outputs stand for. Q is affine (Z2 = 1) and
+    never the identity; P is (0 : 1 : 0) on lane 0, Q = P on lane 1 (the
+    doubling the complete formula covers), Q = -P on lane 2, and on every
+    odd lane P is projective with Z1 != 1 (its affine coordinates times a
+    random nonzero Fq2 scale)."""
+    import random
+
+    from ..backend.curve_ops import get_group_spec
+    from ..curves import get_curve_module
+    from ..curves.tower import Fq2Ops
+
+    mod = get_curve_module("BN254", "cpu")
+    gs = get_group_spec(mod._curve, 2)
+    fs = gs.fs
+    f2 = Fq2Ops(fs.p)
+    rng = random.Random(seed)
+    gen = mod.g2()
+
+    def walk(n):  # base, base + step, base + 2 step, ...: one host add a point
+        pt, step, out = gen * rng.randrange(1, 1 << 64), gen * rng.randrange(1, 1 << 64), []
+        for _ in range(n):
+            out.append(pt)
+            pt = pt + step
+        return out
+
+    P, Q = walk(lanes), walk(lanes)
+    if lanes > 0:
+        P[0] = type(gen).identity()
+    if lanes > 1:
+        Q[1] = P[1]
+    if lanes > 2:
+        Q[2] = -P[2]
+    coords = [[] for _ in range(10)]
+    for i, (a, q) in enumerate(zip(gs._batch_affine(P), gs._batch_affine(Q))):
+        if a is None:
+            x, y, z = (0, 0), (1, 0), (0, 0)
+        else:
+            lam = (rng.randrange(1, fs.p), rng.randrange(fs.p)) if i % 2 else (1, 0)
+            x, y, z = f2.mul(a[0], lam), f2.mul(a[1], lam), lam
+        for c, v in zip(coords, (*x, *y, *z, *q[0], *q[1])):
+            c.append(v)
+    planes = [fs.to_device(fs.to_mont_host(c), device) for c in coords]
+    return planes, [a + b for a, b in zip(P, Q)]
+
+
+def points_of(outs):
+    """The add's six output planes -> host BN254 G2 points."""
+    from ..backend.curve_ops import get_group_spec
+    from ..curves import get_curve_module
+
+    mod = get_curve_module("BN254", "cpu")
+    gs = get_group_spec(mod._curve, 2)
+    o = [t.cpu() for t in outs]
+    return gs.points_from_device(((o[0], o[1]), (o[2], o[3]), (o[4], o[5])), type(mod.g2()))
 
 
 def run(variant, device="cuda", lanes=LANES):
