@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's Groth16 prover (BN254 and BLS12-381), its
-PlonK prover (BN254) and its two measurement entry points once on one CUDA
+PlonK prover (BN254), its two measurement entry points, its sumcheck, its
+commitments (KZG, IPA-PCS, Merkle), Bulletproofs and GKR once on one CUDA
 card.
 
     python3 chip_smoke.py                 # all phases, one card
@@ -63,7 +64,28 @@ Phases, one line each or more:
      a replayed graph) and its plain version; the add at 1024, 2^14 and
      2^17 lanes checked against its plain version and timed; the add on
      1024 pairs of real G2 points, against the plain version and the
-     host's sums.
+     host's sums;
+ 15. the sumcheck of a dense random MLE through Sumcheck(n, r,
+     device="cuda").prove, BN254 at 2^20 entries and BLS12-381 at 2^16: a
+     cold and a warm prove, the device driver's rounds (one a variable) and
+     K1's launches counted; the claim equals the table's sum, verify (with
+     the MLE) accepts, the final evaluation and a 10-variable partial
+     evaluation equal the host walk's, and the round polynomials and
+     challenges equal the host path's on the first 2^14 entries;
+ 16. KZG at 2^20 coefficients (BN254) and 4096 (BLS12-381): setup under a
+     seeded tau, commit (equal to G1 * f(tau) by one host scalar mul), open,
+     verify, a tampered evaluation rejected, multi_open / multi_verify of
+     three polynomials at two points and a tampered proof rejected; K1 and K2
+     launch in commit, open and multi_open; then the host conversions apart:
+     the setup's batch mul and its points' way to the host, and the SRS's
+     way to device limbs with and without its affine normalization;
+ 17. the IPA-PCS over BN254 at n = 2^12 (hash-to-curve basis, commit, open,
+     verify, the first round of the basis fold timed on the host,
+     multi-open; K1 and K2 launch in commit and open); 64-bit Bulletproofs
+     range proofs and the 64-element inner-product argument on both curves
+     (prove, verify, a bytes round trip); GKR on tests/test_gkr.py's three
+     circuits and a 10-gate, 4-layer circuit on both curves; a Merkle tree of
+     4096 leaves; the RFC 9380 BLS12-381 hash-to-curve vectors.
 
 It exits non-zero on any failure, when no CUDA device is present, and when
 jax or any module of zksnake_tpu was imported. The last four lines are the
@@ -74,6 +96,7 @@ measurement as JSON.
 
 import argparse
 import collections
+import contextlib
 import json
 import os
 import random
@@ -93,6 +116,22 @@ G2_BLOCK_LANES = 1024  # debug_g2_mosaic.py's B
 # S9's add: the script's width and two wider ones, to a reduction's 2^17
 # points
 G2_ADD_WIDTHS = (1024, 1 << 14, 1 << 17)
+# phase 15: dense MLE tables (Spartan- and HyperPlonk-sized on BN254); the
+# round polynomials are held to the host path's on a smaller table, since
+# the host path makes four full partial evaluations a round
+SUMCHECK_LOGN = {"BN254": 20, "BLS12_381": 16}
+SUMCHECK_HOST_LOGN = 14
+SUMCHECK_PARTIAL_VARS = 10
+# phase 16: KZG coefficients (BN254: the PlonK size a powers-of-tau SRS
+# serves; BLS12-381: EIP-4844's FIELD_ELEMENTS_PER_BLOB)
+KZG_LOGN = {"BN254": 20, "BLS12_381": 12}
+# phase 17: the IPA-PCS basis, the Bulletproofs bit size, GKR's wide circuit
+# (the GKR takes one sumcheck variable a wire, so a layer of w wires walks
+# tables of 2^w entries on the host)
+IPA_LOGN = 12
+RANGE_BITS = 64
+GKR_WIDE = (10, 4)  # gates a layer, layers
+MERKLE_LEAVES = 4096
 # K3's launches by (field, lanes) in the flagged warm proves of phases 11
 # (Groth16 BLS12-381, 2^17 constraints: 198) and 12 (PlonK BN254, 2^15
 # gates: 347), as those phases count them (they fail if the count differs)
@@ -710,9 +749,43 @@ def phase_msm_g2(ctx):
         f"{row['points_per_s']:.1f} points/s; launches {row['launches']}")
 
 
-def _det_random_int(seed):
+class patched:
+    """Attributes of `module` set to `values` inside the block, restored
+    after: the port's dispatch thresholds, a module's get_random_int."""
+
+    def __init__(self, module, **values):
+        self.module, self.values = module, values
+
+    def __enter__(self):
+        self.saved = {k: getattr(self.module, k) for k in self.values}
+        for k, v in self.values.items():
+            setattr(self.module, k, v)
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            setattr(self.module, k, v)
+
+
+def det_random(module, seed, draws=None):
+    """`module`.get_random_int drawing 1 + random.Random(seed).randrange(n)
+    inside the block, each draw appended to `draws` where given."""
     rng = random.Random(seed)
-    return lambda n_max: 1 + rng.randrange(n_max)
+
+    def draw(n_max):
+        value = 1 + rng.randrange(n_max)
+        if draws is not None:
+            draws.append(value)
+        return value
+
+    return patched(module, get_random_int=draw)
+
+
+def lowered_thresholds():
+    """The port's PlonK and MSM dispatch thresholds at 1 inside the block,
+    so a small circuit takes the device paths."""
+    from zksnake_tpu_torch.backend import config
+
+    return patched(config, PLONK_DEVICE_THRESHOLD=1, MSM_DEVICE_THRESHOLD=1)
 
 
 def _scalar_field(curve):
@@ -750,39 +823,16 @@ def phase_fixtures(ctx):
     from zksnake_tpu_torch.groth16 import Groth16, protocol
 
     for curve in ("BN254", "BLS12_381"):
-        saved = protocol.get_random_int
-        protocol.get_random_int = _det_random_int(f"g16-{curve}")
-        try:
+        with det_random(protocol, f"g16-{curve}"):
             r1cs, pub, priv = _mult_chain(16, curve, 3)
             g16 = Groth16(r1cs, curve, device=ctx.device)
             g16.setup()
             proof = g16.prove(pub, priv)
             ok = g16.verify(proof, pub)
-        finally:
-            protocol.get_random_int = saved
         if proof.to_bytes() != _fixture_bytes("groth16", curve) or not ok:
             raise AssertionError(f"{curve} Groth16 fixture proof bytes differ")
         log(f"[8] fixture proof {curve}: byte-identical to "
             f"tests/fixtures/groth16_{curve.lower()}.hex, verifies")
-
-
-class thresholds:
-    """The port's PlonK and MSM dispatch thresholds set to `value` inside
-    the block (so a small circuit takes the device paths), restored after."""
-
-    def __init__(self, value):
-        self.value = value
-
-    def __enter__(self):
-        from zksnake_tpu_torch.backend import config
-
-        self.saved = config.PLONK_DEVICE_THRESHOLD, config.MSM_DEVICE_THRESHOLD
-        config.PLONK_DEVICE_THRESHOLD = config.MSM_DEVICE_THRESHOLD = self.value
-
-    def __exit__(self, *exc):
-        from zksnake_tpu_torch.backend import config
-
-        config.PLONK_DEVICE_THRESHOLD, config.MSM_DEVICE_THRESHOLD = self.saved
 
 
 def _plonk_chain(n_power, curve, inp_value):
@@ -806,24 +856,15 @@ def _plonk_chain(n_power, curve, inp_value):
 
 
 def phase_plonk_fixtures(ctx):
-    from zksnake_tpu_torch.backend import kernels
     from zksnake_tpu_torch.plonk import Plonk, protocol
 
     for curve in ("BN254", "BLS12_381"):
-        saved = protocol.get_random_int
-        protocol.get_random_int = _det_random_int(f"plonk-{curve}")
-        try:
-            with thresholds(1):
-                plonkish, pub, priv = _plonk_chain(16, curve, 3)
-                plonk = Plonk(plonkish, curve, device=ctx.device)
-                plonk.setup()
-                kernels.reset_launches()
-                proof = plonk.prove(pub, priv)
-                ctx.sync()
-                launches = dict(kernels.LAUNCHES)
-                ok = plonk.verify(proof, pub)
-        finally:
-            protocol.get_random_int = saved
+        with det_random(protocol, f"plonk-{curve}"), lowered_thresholds():
+            plonkish, pub, priv = _plonk_chain(16, curve, 3)
+            plonk = Plonk(plonkish, curve, device=ctx.device)
+            plonk.setup()
+            proof, _, launches = _counted(ctx, lambda: plonk.prove(pub, priv))
+            ok = plonk.verify(proof, pub)
         if proof.to_bytes() != _fixture_bytes("plonk", curve) or not ok:
             raise AssertionError(f"{curve} PlonK fixture proof bytes differ")
         _require_launches(ctx, f"PlonK fixture {curve}", launches, ("mont_mul", "bucket_accumulate"))
@@ -831,25 +872,29 @@ def phase_plonk_fixtures(ctx):
             f"{curve.lower()}.hex (fused prover on the device, launches {launches}), verifies")
 
 
-def _prove_counted(ctx, prove, protocol, seed=None):
-    """One prove() with every launch counter set to 0 just before it and
-    read just after; `seed` fixes the protocol module's randomness (Groth16's
-    r, s; PlonK's 11 blinds). Returns (proof, seconds, launches)."""
+def _counted(ctx, fn):
+    """(fn(), seconds, launches) with every launch counter set to 0 just
+    before the call and read just after."""
     from zksnake_tpu_torch.backend import kernels
 
-    saved = protocol.get_random_int
-    if seed is not None:
-        protocol.get_random_int = _det_random_int(seed)
-    try:
-        kernels.reset_launches()
-        t0 = time.perf_counter()
-        proof = prove()
-        ctx.sync()
-        dt = time.perf_counter() - t0
-        launches = dict(kernels.LAUNCHES)
-    finally:
-        protocol.get_random_int = saved
-    return proof, dt, launches
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    ctx.sync()
+    return out, time.perf_counter() - t0, dict(kernels.LAUNCHES)
+
+
+def _nz(launches):
+    """The counters of a launch record that are not 0."""
+    return {k: v for k, v in launches.items() if v}
+
+
+def _prove_counted(ctx, prove, protocol, seed=None):
+    """One prove() counted by _counted; `seed` fixes the protocol module's
+    randomness (Groth16's r, s; PlonK's 11 blinds). Returns (proof,
+    seconds, launches)."""
+    with det_random(protocol, seed) if seed is not None else contextlib.nullcontext():
+        return _counted(ctx, prove)
 
 
 def _require_launches(ctx, path, launches, names, absent=()):
@@ -957,14 +1002,12 @@ def phase_bls12_381(ctx):
 
 
 def phase_plonk(ctx):
-    import contextlib
-
     from zksnake_tpu_torch import metrics
     from zksnake_tpu_torch.plonk import Plonk, protocol
 
     logn = PLONK_LOGN if not ctx.rehearse else 5
     # at toy sizes the thresholds are lowered so the same device paths run
-    lowered = thresholds(1) if ctx.rehearse else contextlib.nullcontext()
+    lowered = lowered_thresholds() if ctx.rehearse else contextlib.nullcontext()
     with lowered:
         t0 = time.perf_counter()
         plonkish, pub, priv = _plonk_chain(1 << logn, "BN254", 2)
@@ -1210,9 +1253,372 @@ def phase_g2_block(ctx):
                                    library="none: no PyTorch call computes a G2 point add")
 
 
+def phase_sumcheck(ctx):
+    from zksnake_tpu_torch.backend import config, mle
+    from zksnake_tpu_torch.polynomial import MultilinearPolynomial
+    from zksnake_tpu_torch.subprotocol.sumcheck import Sumcheck
+
+    host = 1 << 62
+    for curve, logn in SUMCHECK_LOGN.items():
+        if ctx.rehearse:
+            logn = 12  # MLE_DEVICE_THRESHOLD
+        p = _scalar_field(curve)
+        rng = random.Random(f"sumcheck-{curve}")
+        t0 = time.perf_counter()
+        vals = [rng.randrange(p) for _ in range(1 << logn)]
+        poly = MultilinearPolynomial(logn, enumerate(vals), p, device=ctx.device)
+        t_build = time.perf_counter() - t0
+        sc = Sumcheck(logn, p, device=ctx.device)
+        _, t_cold, _ = _counted(ctx, lambda: sc.prove(poly))
+        rounds = mle.SUMCHECK_DEVICE_ROUNDS
+        (claim, proof, chal), t_warm, launches = _counted(ctx, lambda: sc.prove(poly))
+        rounds = mle.SUMCHECK_DEVICE_ROUNDS - rounds
+        if rounds < logn:
+            raise AssertionError(f"sumcheck {curve} 2^{logn}: {rounds} device rounds, not {logn}")
+        _require_launches(ctx, f"sumcheck {curve} 2^{logn}", launches, ("mont_mul",),
+                          ("bucket_accumulate",))
+        if claim != sum(vals) % p:
+            raise AssertionError(f"sumcheck {curve} 2^{logn}: the claim is not the table's sum")
+        ok, t_verify, launches_verify = _counted(
+            ctx, lambda: sc.verify(claim, proof, 3, mlpoly=poly))
+        if ok != chal:
+            raise AssertionError(f"sumcheck {curve} 2^{logn} does not verify")
+        final = proof[-1](chal[-1])
+        dev_eval, t_eval, _ = _counted(ctx, lambda: poly.evaluate(chal))
+        with patched(config, MLE_DEVICE_THRESHOLD=host):
+            host_eval, t_host_eval, _ = _counted(ctx, lambda: poly.evaluate(chal))
+        if not dev_eval == host_eval == final:
+            raise AssertionError(f"sumcheck {curve}: the final evaluation is not the host walk's")
+        k = SUMCHECK_PARTIAL_VARS
+        dev_pe, t_pe, launches_pe = _counted(ctx, lambda: poly.partial_evaluate(chal[:k]))
+        with patched(config, MLE_DEVICE_THRESHOLD=host):
+            host_pe, t_host_pe, _ = _counted(ctx, lambda: poly.partial_evaluate(chal[:k]))
+        if (dev_pe.num_vars, dev_pe.evals) != (host_pe.num_vars, host_pe.evals):
+            raise AssertionError(f"sumcheck {curve}: partial_evaluate of {k} variables "
+                                 f"differs from the host walk")
+        _require_launches(ctx, f"partial_evaluate {curve}", launches_pe, ("mont_mul",))
+        # the round polynomials and challenges against the host path, on a
+        # table the host path can walk in the call's time
+        small = SUMCHECK_HOST_LOGN if not ctx.rehearse else 12
+        sp = MultilinearPolynomial(small, enumerate(vals[: 1 << small]), p, device=ctx.device)
+        ssc = Sumcheck(small, p, device=ctx.device)
+        dev_small = ssc.prove(sp)
+        with patched(config, MLE_DEVICE_THRESHOLD=host):
+            host_small, t_host_small, _ = _counted(ctx, lambda: ssc.prove(sp))
+        same = (dev_small[0], dev_small[2], [u.coeffs() for u in dev_small[1]]) == \
+            (host_small[0], host_small[2], [u.coeffs() for u in host_small[1]])
+        if not same:
+            raise AssertionError(f"sumcheck {curve} 2^{small}: the device rounds differ "
+                                 f"from the host path's")
+        tag = f"sumcheck_{curve.lower()}"
+        ctx.paths[tag] = launches
+        ctx.paths[f"mle_partial_{curve.lower()}"] = launches_pe
+        ctx.detail[tag] = {
+            "log2_size": logn, "build_s": t_build, "prove_cold_s": t_cold, "prove_warm_s": t_warm,
+            "device_rounds": rounds, "launches": launches, "verify_s": t_verify,
+            "launches_verify": launches_verify, "evaluate_s": t_eval,
+            "host_evaluate_s": t_host_eval, "partial_evaluate_s": t_pe,
+            "host_partial_evaluate_s": t_host_pe, "launches_partial": launches_pe,
+            "host_prove_s_small": t_host_small, "log2_small": small,
+        }
+        log(f"[15] sumcheck {curve} 2^{logn}: claim = the table's sum, verifies, final "
+            f"evaluation and {k}-variable partial evaluation = the host walk's; rounds at "
+            f"2^{small} = the host path's; build {t_build:.3f} s, prove cold {t_cold:.3f} s, "
+            f"warm {t_warm:.3f} s ({rounds} device rounds, launches {_nz(launches)}), verify "
+            f"{t_verify:.3f} s; evaluate {t_eval:.3f} s (host {t_host_eval:.3f} s), "
+            f"partial {t_pe:.3f} s (host {t_host_pe:.3f} s); host prove at 2^{small} "
+            f"{t_host_small:.3f} s")
+
+
+def _multi_query(scheme, polys, x, y, blinds=None):
+    """tests/test_commitment.py's query: polys[0] opened at x, the others
+    at x and y; commitments made here (blinded where blinds are given)."""
+    from zksnake_tpu_torch.commitment.polynomial import MultiOpeningQuery
+
+    query = MultiOpeningQuery()
+    for i, poly in enumerate(polys):
+        if blinds is None:
+            query.add_polynomial(poly, scheme.commit(poly))
+        else:
+            query.add_polynomial(poly, scheme.commit(poly, blinds[i]), blinds[i])
+    for i, point in ((0, x), (1, x), (1, y), (2, x), (2, y)):
+        query.prover_query(polys[i], point)
+    return query
+
+
+def _srs_split(ctx, kzg, tau):
+    """Where KZG's host-bound time goes: the setup's fixed-base batch mul on
+    the card and its conversion of the 2^n points back to the host (the
+    setup's work again, timed apart and checked against its SRS), then the
+    SRS's conversion to device limbs, first with its batched affine
+    normalization and then with the affine form cached on the points (as
+    every commit and open after the first finds it)."""
+    from zksnake_tpu_torch.backend.curve_ops import get_group_spec
+    from zksnake_tpu_torch.backend.msm import batch_mul_fixed_base_raw, scalars_to_device
+
+    gs = get_group_spec(kzg.E.curve._curve, 1)
+    order = kzg.order
+    powers = [1]
+    for _ in range(len(kzg.G1_tau) - 1):
+        powers.append(powers[-1] * tau % order)
+    slimbs = scalars_to_device(powers, order, ctx.device)
+    raw, t_batch_mul, _ = _counted(ctx, lambda: batch_mul_fixed_base_raw(gs, kzg.E.G1(), slimbs))
+    t0 = time.perf_counter()
+    pts = gs.points_from_device(raw, kzg.E.curve.PointG1)
+    t_to_host = time.perf_counter() - t0
+    if [pts[0], pts[-1]] != [kzg.G1_tau[0], kzg.G1_tau[-1]]:
+        raise AssertionError("KZG: the setup's batch mul, run again, gives another SRS")
+    _, t_upload_cold, _ = _counted(ctx, lambda: gs.points_to_device(pts, ctx.device))
+    _, t_upload_warm, _ = _counted(ctx, lambda: gs.points_to_device(pts, ctx.device))
+    return {"setup_batch_mul_s": t_batch_mul, "setup_to_host_s": t_to_host,
+            "srs_to_device_cold_s": t_upload_cold, "srs_to_device_warm_s": t_upload_warm}
+
+
+def phase_kzg(ctx):
+    from zksnake_tpu_torch.commitment.polynomial import KZG, kzg as kzg_mod
+    from zksnake_tpu_torch.polynomial import Polynomial
+
+    for curve, logn in KZG_LOGN.items():
+        if ctx.rehearse:
+            logn = 8  # MSM_DEVICE_THRESHOLD
+        n = 1 << logn
+        kzg = KZG(n - 1, curve, device=ctx.device)
+        drawn = []
+        with det_random(kzg_mod, f"kzg-{curve}", drawn):
+            _, t_setup, launches_setup = _counted(ctx, kzg.setup)
+        tau = drawn[0]
+        rng = random.Random(f"kzg-poly-{curve}")
+        polys = [Polynomial([rng.randrange(kzg.order) for _ in range(n)], kzg.order)
+                 for _ in range(3)]
+        commitment, t_commit, launches_commit = _counted(ctx, lambda: kzg.commit(polys[0]))
+        if commitment != kzg.E.G1() * polys[0](tau):
+            raise AssertionError(f"KZG {curve} 2^{logn}: commit(f) != G1 * f(tau)")
+        z = rng.randrange(kzg.order)
+        (proof, y), t_open, launches_open = _counted(ctx, lambda: kzg.open(polys[0], z))
+        if y != polys[0](z):
+            raise AssertionError(f"KZG {curve}: the opening's evaluation is wrong")
+        ok, t_verify, _ = _counted(ctx, lambda: kzg.verify(commitment, proof, z, y))
+        if not ok or kzg.verify(commitment, proof, z, (y + 1) % kzg.order):
+            raise AssertionError(f"KZG {curve} 2^{logn}: verify accepts the wrong opening "
+                                 f"or rejects the right one")
+        for path, lc in (("commit", launches_commit), ("open", launches_open)):
+            _require_launches(ctx, f"KZG {curve} {path}", lc, K_DEFAULT)
+        x1, x2 = rng.randrange(kzg.order), rng.randrange(kzg.order)
+        t0 = time.perf_counter()
+        query = _multi_query(kzg, polys, x1, x2)
+        t_commit3 = time.perf_counter() - t0
+        (mproof, vquery), t_mopen, launches_mopen = _counted(ctx, lambda: kzg.multi_open(query))
+        mok, t_mverify, _ = _counted(ctx, lambda: kzg.multi_verify(vquery, mproof))
+        bad = list(mproof)
+        bad[1] = (bad[1] + 1) % kzg.order
+        if not mok or kzg.multi_verify(vquery, bad):
+            raise AssertionError(f"KZG {curve} 2^{logn}: multi_verify accepts a tampered "
+                                 f"proof or rejects the right one")
+        _require_launches(ctx, f"KZG {curve} multi_open", launches_mopen, K_DEFAULT)
+        tag = f"kzg_{curve.lower()}"
+        for path, lc in (("setup", launches_setup), ("commit", launches_commit),
+                         ("open", launches_open), ("multi_open", launches_mopen)):
+            ctx.paths[f"{tag}_{path}"] = lc
+        split = _srs_split(ctx, kzg, tau)
+        ctx.detail[tag] = {
+            **split,
+            "coefficients": n, "setup_s": t_setup, "commit_s": t_commit, "open_s": t_open,
+            "verify_s": t_verify, "commit3_s": t_commit3, "multi_open_s": t_mopen,
+            "multi_verify_s": t_mverify, "launches_setup": launches_setup,
+            "launches_commit": launches_commit, "launches_open": launches_open,
+            "launches_multi_open": launches_mopen,
+        }
+        log(f"[16] KZG {curve} 2^{logn} coefficients: commit = G1 * f(tau), the opening "
+            f"verifies and a tampered one does not, multi-open of 3 polynomials at 2 points "
+            f"verifies and a tampered one does not; setup {t_setup:.3f} s, commit "
+            f"{t_commit:.3f} s (launches {_nz(launches_commit)}), open {t_open:.3f} s (launches "
+            f"{_nz(launches_open)}), verify {t_verify:.3f} s, 3 commits {t_commit3:.3f} s, "
+            f"multi_open {t_mopen:.3f} s (launches {_nz(launches_mopen)}), multi_verify "
+            f"{t_mverify:.3f} s")
+        log(f"[16] KZG {curve} 2^{logn} host conversions: the setup's batch mul "
+            f"{split['setup_batch_mul_s']:.3f} s on the device, its points to the host "
+            f"{split['setup_to_host_s']:.3f} s; the SRS to device limbs "
+            f"{split['srs_to_device_cold_s']:.3f} s with its affine normalization, "
+            f"{split['srs_to_device_warm_s']:.3f} s with it cached")
+
+
+def _gkr_circuits():
+    """tests/test_gkr.py's three circuits and a GKR_WIDE layered circuit
+    (gate k reads wire k of the layer below and a random wire at or before
+    it), as (name, inputs, layers of (gate, lhs, rhs, out))."""
+    circuits = [
+        ("add_mul", ["x", "y"], [[("ADD", "x", "y", "z")], [("MUL", "z", "z", "zz")]]),
+        ("three_layers", ["x", "y", "u", "v"], [
+            [("ADD", "x", "y", "z1"), ("MUL", "x", "y", "z2"), ("MUL", "x", "y", "z3"),
+             ("MUL", "u", "v", "w"), ("ADD", "x", "x", "xx")],
+            [("MUL", "z1", "z2", "zz"), ("MUL", "z1", "z3", "zzz"), ("MUL", "w", "w", "ww"),
+             ("ADD", "xx", "xx", "xxx")],
+            [("ADD", "zzz", "zz", "a"), ("MUL", "zzz", "ww", "b"),
+             ("MUL", "xxx", "xxx", "xxxx")]]),
+        ("squares", ["a1", "a2", "a3", "a4"], [
+            [("MUL", "a1", "a1", "b1"), ("MUL", "a2", "a2", "b2"), ("MUL", "a2", "a3", "b3"),
+             ("MUL", "a4", "a4", "b4")],
+            [("MUL", "b1", "b2", "c1"), ("MUL", "b3", "b4", "c2")]]),
+    ]
+    width, depth = GKR_WIDE
+    rng = random.Random("gkr-wide")
+    inputs = [f"i{k}" for k in range(width)]
+    layers, below = [], inputs
+    for d in range(depth):
+        outs = [f"w{d}_{k}" for k in range(width)]
+        layers.append([(rng.choice(["ADD", "MUL"]), below[k], below[rng.randrange(k + 1)], o)
+                       for k, o in enumerate(outs)])
+        below = outs
+    return circuits + [(f"wide_{width}x{depth}", inputs, layers)]
+
+
+def phase_commitments(ctx):
+    from zksnake_tpu_torch.arithmetization import LayeredCircuit
+    from zksnake_tpu_torch.commitment.polynomial import IPA, ipa as ipa_mod
+    from zksnake_tpu_torch.commitment.vector import Merkle
+    from zksnake_tpu_torch.curves.point import get_g1_class
+    from zksnake_tpu_torch.polynomial import Polynomial
+    from zksnake_tpu_torch.subprotocol.bulletproofs import (InnerProductArgument,
+                                                           InnerProductProof, RangeProof,
+                                                           range_proof)
+    from zksnake_tpu_torch.subprotocol.gkr import GKR
+
+    row = {}
+    # IPA-PCS over BN254
+    logn = IPA_LOGN if not ctx.rehearse else 8
+    n = 1 << logn
+    ipa = IPA(n, "BN254", device=ctx.device)
+    _, t_basis, _ = _counted(ctx, ipa.setup)
+    rng = random.Random("ipa-pcs")
+    polys = [Polynomial([rng.randrange(ipa.order) for _ in range(n)], ipa.order)
+             for _ in range(3)]
+    blinds = [rng.randrange(1, ipa.order) for _ in polys]
+    commitment, t_commit, launches_commit = _counted(ctx, lambda: ipa.commit(polys[0], blinds[0]))
+    z = rng.randrange(ipa.order)
+    with det_random(ipa_mod, "ipa-open"):
+        (proof, y), t_open, launches_open = _counted(
+            ctx, lambda: ipa.open(polys[0], z, commitment, blinds[0]))
+    ok, t_verify, launches_verify = _counted(ctx, lambda: ipa.verify(commitment, proof, z, y))
+    if not ok or y != polys[0](z) or ipa.verify(commitment, proof, z, (y + 1) % ipa.order):
+        raise AssertionError(f"IPA-PCS 2^{logn}: verify accepts the wrong opening or "
+                             f"rejects the right one")
+    for path, lc in (("commit", launches_commit), ("open", launches_open)):
+        _require_launches(ctx, f"IPA-PCS {path}", lc, K_DEFAULT)
+    # the basis fold of open's first round: 2^(logn-1) host scalar muls
+    u = rng.randrange(ipa.order)
+    half = n // 2
+    t0 = time.perf_counter()
+    folded = [lo + u * hi for lo, hi in zip(ipa.G[:half], ipa.G[half:])]
+    t_fold1 = time.perf_counter() - t0
+    if folded[0] != ipa.G[0] + ipa.G[half] * u:
+        raise AssertionError("IPA basis fold")
+    with det_random(ipa_mod, "ipa-multi"):
+        x1, x2 = rng.randrange(ipa.order), rng.randrange(ipa.order)
+        query = _multi_query(ipa, polys, x1, x2, blinds)
+        (mproof, vquery), t_mopen, launches_mopen = _counted(ctx, lambda: ipa.multi_open(query))
+    mok, t_mverify, _ = _counted(ctx, lambda: ipa.multi_verify(vquery, mproof))
+    bad = list(mproof)
+    bad[1] = (bad[1] + 1) % ipa.order
+    if not mok or ipa.multi_verify(vquery, bad):
+        raise AssertionError("IPA-PCS multi_verify accepts a tampered proof or rejects the "
+                             "right one")
+    ctx.paths["ipa_pcs_commit"] = launches_commit
+    ctx.paths["ipa_pcs_open"] = launches_open
+    ctx.paths["ipa_pcs_multi_open"] = launches_mopen
+    row["ipa_pcs"] = {"n": n, "basis_s": t_basis, "commit_s": t_commit, "open_s": t_open,
+                      "verify_s": t_verify, "fold_round1_s": t_fold1, "multi_open_s": t_mopen,
+                      "multi_verify_s": t_mverify, "launches_commit": launches_commit,
+                      "launches_open": launches_open, "launches_verify": launches_verify,
+                      "launches_multi_open": launches_mopen}
+    log(f"[17] IPA-PCS BN254 n = 2^{logn}: the opening and the multi-opening verify, tampered "
+        f"ones do not; hash-to-curve basis {t_basis:.3f} s, commit {t_commit:.3f} s (launches "
+        f"{_nz(launches_commit)}), open {t_open:.3f} s (launches {_nz(launches_open)}; its "
+        f"first basis fold round {t_fold1:.3f} s on the host), verify {t_verify:.3f} s, multi_open "
+        f"{t_mopen:.3f} s, multi_verify {t_mverify:.3f} s")
+    # Bulletproofs: 64-bit range proofs and the 64-element inner-product argument
+    for curve in K2_CURVES:
+        bits = RANGE_BITS if not ctx.rehearse else 8
+        rp, t_gen, _ = _counted(ctx, lambda: RangeProof(bits, curve, device=ctx.device))
+        v = random.Random(curve).randrange(1 << bits)
+        with det_random(range_proof, f"rp-{curve}"):
+            proof, t_prove, launches_rp = _counted(ctx, lambda: rp.prove(v))
+            raw = proof.to_bytes()
+            back = range_proof.RangeProofObject.from_bytes(raw, curve)
+            ok, t_rverify, _ = _counted(ctx, lambda: rp.verify(back))
+            over = rp.prove(v + (1 << bits))  # out of range
+            rejects = not rp.verify(over)
+        if not ok or back.to_bytes() != raw or not rejects:
+            raise AssertionError(f"range proof {curve} {bits} bits")
+        a = [random.Random(i).randrange(rp.E.order) for i in range(bits)]
+        b = [random.Random(-i).randrange(rp.E.order) for i in range(bits)]
+        arg = InnerProductArgument(bits, curve, device=ctx.device)
+        (iproof, comm, ab), t_iprove, _ = _counted(ctx, lambda: arg.prove(a, b))
+        iback = InnerProductProof.from_bytes(iproof.to_bytes(), curve)
+        if not arg.verify(iback, comm, ab) or arg.verify(iback, comm, ab + 1) or \
+                iback.to_bytes() != iproof.to_bytes():
+            raise AssertionError(f"inner-product argument {curve} {bits}")
+        row[f"bulletproofs_{curve.lower()}"] = {
+            "bits": bits, "generators_s": t_gen, "range_prove_s": t_prove,
+            "range_verify_s": t_rverify, "proof_bytes": len(raw), "ipa_prove_s": t_iprove,
+            "launches_range_prove": launches_rp}
+        log(f"[17] Bulletproofs {curve}: {bits}-bit range proof ({len(raw)} bytes) verifies "
+            f"after a bytes round trip, an out-of-range one does not; the {bits}-element "
+            f"inner-product argument verifies; generators {t_gen:.3f} s, range prove "
+            f"{t_prove:.3f} s, verify {t_rverify:.3f} s, inner-product prove {t_iprove:.3f} s")
+    # GKR on both curves
+    for curve in K2_CURVES:
+        p = _scalar_field(curve)
+        for name, inputs, layers in _gkr_circuits():
+            circuit = LayeredCircuit(list(inputs))
+            for i, layer in enumerate(layers):
+                if i:
+                    circuit.add_layer()
+                for gate in layer:
+                    circuit.add_gate(*gate)
+            gkr = GKR(circuit, p, device=ctx.device)
+            grng = random.Random(f"gkr-{curve}-{name}")
+            inp = {k: grng.randrange(1, p - 1) for k in inputs}
+            (out, gproof), t_gprove, _ = _counted(ctx, lambda: gkr.prove(dict(inp)))
+            wrong = dict(out)
+            key = next(iter(wrong))
+            wrong[key] = (wrong[key] + 1) % p
+            if not gkr.verify(inp, out, gproof) or gkr.verify(inp, wrong, gproof):
+                raise AssertionError(f"GKR {curve} {name}")
+            row[f"gkr_{curve.lower()}_{name}"] = {"prove_s": t_gprove}
+        log(f"[17] GKR {curve}: the circuits of tests/test_gkr.py and a {GKR_WIDE[0]}-gate, "
+            f"{GKR_WIDE[1]}-layer circuit prove and verify, a wrong output is rejected; the "
+            f"wide one proves in {row[f'gkr_{curve.lower()}_{name}']['prove_s']:.3f} s")
+    # Merkle
+    leaves = [i.to_bytes(32, "little") for i in range(MERKLE_LEAVES)]
+    m = Merkle()
+    root, t_merkle, _ = _counted(ctx, lambda: m.commit(leaves))
+    for idx in (0, 1, MERKLE_LEAVES // 2, MERKLE_LEAVES - 1):
+        path = m.open(leaves, idx)
+        if not m.verify(root, path, idx, leaves[idx]) or m.verify(root, path, idx, b"x"):
+            raise AssertionError("Merkle")
+    row["merkle"] = {"leaves": MERKLE_LEAVES, "commit_s": t_merkle}
+    # the RFC 9380 BLS12381G1_XMD:SHA-256_SSWU_RO_ vectors (tests/test_curves.py)
+    cls = get_g1_class("BLS12_381")
+    dst = b"QUUX-V01-CS02-with-BLS12381G1_XMD:SHA-256_SSWU_RO_"
+    vectors = {
+        b"": (0x052926ADD2207B76CA4FA57A8734416C8DC95E24501772C814278700EED6D1E4E8CF62D9C09DB0FAC349612B759E79A1,  # noqa: E501
+              0x08BA738453BFED09CB546DBB0783DBB3A5F1F566ED67BB6BE0E8C67E2E81A4CC68EE29813BB7994998F3EAE0C9C6A265),  # noqa: E501
+        b"abc": (0x03567BC5EF9C690C2AB2ECDF6A96EF1C139CC0B2F284DCA0A9A7943388A49A3AEE664BA5379A7655D3C68900BE2F6903,  # noqa: E501
+                 0x0B9C15F3FE6E5CF4211F346271D7B01C8F3B28BE689C8429C85B67AF215533311F0B8DFAAA154FA6B88176C229F2885D),  # noqa: E501
+    }
+    for msg, xy in vectors.items():
+        pt = cls.hash_to_curve(dst, msg)
+        if (pt.x, pt.y) != xy or not pt.in_subgroup():
+            raise AssertionError(f"RFC 9380 vector {msg!r}")
+    ctx.detail["commitments"] = row
+    log(f"[17] Merkle over {MERKLE_LEAVES} leaves: commit {t_merkle:.3f} s, paths verify; "
+        f"RFC 9380 BLS12-381 G1 vectors: equal")
+
+
 PHASES = [phase_build, phase_k1, phase_k3, phase_k2, phase_k2m, phase_msm, phase_msm_mma,
           phase_msm_g2, phase_fixtures, phase_plonk_fixtures, phase_bn254, phase_bls12_381,
-          phase_plonk, phase_relayout, phase_g2_block]
+          phase_plonk, phase_relayout, phase_g2_block, phase_sumcheck, phase_kzg,
+          phase_commitments]
 
 # the kernel libraries each phase launches: phase 0 builds those of the
 # chosen phases, and K1's always (every wrapper reports a launch error with
@@ -1221,7 +1627,7 @@ _K2_LIBS = ("bucket16", "bucket24")
 _K2M_LIBS = ("bucket_mma16", "bucket_mma24")
 _PROVE_LIBS = ("montmul_mma",) + _K2_LIBS + _K2M_LIBS
 PHASE_LIBS = [(), (), ("montmul_mma",), _K2_LIBS, ("montmul_mma",) + _K2_LIBS + _K2M_LIBS,
-              *[_PROVE_LIBS] * 8, ("relayout",), ("g2_block",)]
+              *[_PROVE_LIBS] * 8, ("relayout",), ("g2_block",), (), _K2_LIBS, ("bucket16",)]
 
 # kernel -> (source, the TPU kernel it replaces, the main-path run its
 # launch count is read from)

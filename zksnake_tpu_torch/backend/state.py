@@ -8,6 +8,11 @@ PlonK keys need no helper here: the JAX package's ProvingKey.to_bytes() and
 VerifyingKey.to_bytes() read back with the port's plonk.ProvingKey /
 VerifyingKey.from_bytes, and the port's PlonkDeviceProver builds its device
 tensors from that key (tests/test_torch_plonk.py proves with one).
+
+The commitments' public parameters are host points: points_from_jax reads
+them from compressed point bytes (the arkworks wire format both packages
+write with to_bytes()), so a JAX-made SRS commits and opens the same in the
+port.
 """
 
 import numpy as np
@@ -59,3 +64,23 @@ def prover_state_from_jax(arrays, device, curve="BN254"):
                 int(m["n_col"]),
             )
     return state
+
+
+def points_from_jax(curve, blobs):
+    """The port's points of `curve` from compressed point bytes, G1 or G2 by
+    length, as the JAX package's [p.to_bytes() for p in ...] gives them: a
+    KZG SRS (G1_tau + [G2_tau]), the IPA-PCS basis (G + [H]) or a
+    Bulletproofs argument's generators (G + H + [B, B_blinding])."""
+    from ..curves.point import get_g1_class, get_g2_class
+    from ..ecc import curve_spec
+
+    g1_len = curve_spec(curve).point_bytes
+    g1, g2 = get_g1_class(curve), get_g2_class(curve)
+    out = []
+    for raw in blobs:
+        raw = bytes(raw)
+        if len(raw) not in (g1_len, 2 * g1_len):
+            raise ValueError(f"Expected {g1_len} or {2 * g1_len} bytes, got {len(raw)}")
+        out.append((g1 if len(raw) == g1_len else g2).from_bytes(raw))
+    return out
+

@@ -4,9 +4,9 @@ API parity with the reference native core's PyO3 classes
 (upstream zksnake: src/bn254/curve.rs:19-324): PointG1/PointG2 with projective
 internals, compressed (de)serialization in the arkworks wire format
 (little-endian x with 2 flag bits in the top byte: 0x40 = infinity,
-0x80 = "y is negative" i.e. y > -y lexicographically), from_x, identity,
-and operator overloads. (hash_to_field / hash_to_curve come with the
-commitments slice.)
+0x80 = "y is negative" i.e. y > -y lexicographically), hash_to_field /
+hash_to_curve (curves/hash2curve.py, host work), from_x, identity, and
+operator overloads.
 
 These objects are the *scalar* path. Bulk kernels (MSM, batched scalar mul)
 run on the torch device via backend/msm.py and accept/return these points.
@@ -395,6 +395,18 @@ def _make_g1(curve):
             if not pt.is_on_curve() or not pt.in_subgroup():
                 raise ValueError("Point is not on curve")
             return pt
+
+        @classmethod
+        def hash_to_field(cls, dst, data):
+            from .hash2curve import hash_to_field_fq
+
+            return hash_to_field_fq(bytes(bytearray(data)), bytes(bytearray(dst)), curve, 1)[0]
+
+        @classmethod
+        def hash_to_curve(cls, dst, data):
+            from .hash2curve import hash_to_curve_g1
+
+            return hash_to_curve_g1(bytes(bytearray(data)), bytes(bytearray(dst)), curve, cls)
 
     PointG1.__name__ = "PointG1"
     PointG1.__qualname__ = f"PointG1_{curve.name}"

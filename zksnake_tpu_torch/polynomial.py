@@ -19,8 +19,9 @@ Semantics mirror arkworks (src/bn254/polynomial.rs):
 Large transforms run on the caller's torch device (backend/ntt.py; the
 transforms take `device`, "cuda" unless the caller asks for the CPU); small
 ones use a host bigint NTT (device round-trips dominate below the
-threshold). The multilinear part (`MultilinearPolynomial`) comes with the
-MLE port.
+threshold). The multilinear part (`MultilinearPolynomial`,
+`SparseMultilinearPolynomial`) carries its device the same way: large dense
+tables fold there (backend/mle.py), sparse ones walk on the host.
 """
 
 from .utils import next_power_of_two, batch_modinv
@@ -581,6 +582,169 @@ def Polynomial(coeffs, p, domain_size=None):
         return MultivariatePolynomial(num_vars, coeff_terms, p, domain_size)
     else:
         raise TypeError("Coefficients must be in list or dict")
+
+
+class SparseMultilinearPolynomial:
+    """Sparse multilinear extension over the boolean hypercube
+    (arkworks SparseMultilinearExtension semantics; src/bn254/mle.rs).
+    Large dense tables fold on `device` ("cuda" unless the caller asks for
+    the CPU; backend/mle.py)."""
+
+    __slots__ = ("p", "num_vars", "evals", "device")
+
+    def __init__(self, num_vars, evaluations, p, device="cuda"):
+        self.p = p
+        self.num_vars = num_vars
+        self.device = _backend_config.check_device(device)
+        self.evals = {}
+        for i, v in evaluations:
+            v = int(v) % p
+            self.evals[int(i)] = v
+        self.evals = {i: v for i, v in self.evals.items() if v != 0}
+
+    def _wrap(self, num_vars, evals):
+        poly = SparseMultilinearPolynomial.__new__(SparseMultilinearPolynomial)
+        poly.p = self.p
+        poly.num_vars = num_vars
+        poly.device = self.device
+        poly.evals = {i: v for i, v in evals.items() if v != 0}
+        return poly
+
+    @classmethod
+    def zero(cls, p=BN254_SCALAR_FIELD, device="cuda"):
+        return cls(0, [], p, device)
+
+    def evaluate(self, points):
+        if len(points) != self.num_vars:
+            raise ValueError(
+                "Evaluation requires points to be in the same size as the number of variables"
+            )
+        return self.partial_evaluate(points).evals.get(0, 0)
+
+    def partial_evaluate(self, partial_points):
+        """Fix the first len(partial_points) variables (variable 0 = LSB).
+
+        Large dense tables dispatch to the device strided fold
+        (backend/mle.py) on the polynomial's device; sparse ones keep the
+        O(nnz) host walk."""
+        p = self.p
+        evals = self.evals
+        nv = self.num_vars
+
+        from .backend import mle as _dev_mle
+
+        k = len(partial_points)
+        if _dev_mle.should_use_device(nv, len(evals), k, self.device):
+            folded = _dev_mle.partial_evaluate_device(
+                p, nv, evals, partial_points, self.device
+            )
+            return self._wrap(
+                nv - k, {i: v for i, v in enumerate(folded) if v}
+            )
+
+        for r in partial_points:
+            r = int(r) % p
+            new = {}
+            for idx, v in evals.items():
+                contrib = v * (r if (idx & 1) else (1 - r)) % p
+                key = idx >> 1
+                new[key] = (new.get(key, 0) + contrib) % p
+            evals = {i: v for i, v in new.items() if v != 0}
+            nv -= 1
+        return self._wrap(nv, evals)
+
+    def to_evaluations(self):
+        out = [0] * (1 << self.num_vars)
+        for i, v in self.evals.items():
+            out[i] = v
+        return out
+
+    def to_coefficients(self):
+        return _mle_ext(self.to_evaluations(), self.p)
+
+    def permute_evaluations(self, permutation):
+        nv = self.num_vars
+        assert len(permutation) == nv
+        new_evals = []
+        for index, value in self.evals.items():
+            bits = [(index >> i) & 1 for i in range(nv)]
+            new_index = 0
+            for i, pi in enumerate(permutation):
+                new_index |= bits[pi] << i
+            new_evals.append((new_index, value))
+        return self._wrap(nv, dict(new_evals))
+
+    def swap(self, a, b, k):
+        """Relabel: swap variable blocks [a, a+k) and [b, b+k)."""
+        if a > b:
+            a, b = b, a
+        if a == b or k == 0:
+            return self._wrap(self.num_vars, dict(self.evals))
+        assert a + k <= b and b + k <= self.num_vars
+        out = {}
+        maskk = (1 << k) - 1
+        for idx, v in self.evals.items():
+            abits = (idx >> a) & maskk
+            bbits = (idx >> b) & maskk
+            new = idx & ~(maskk << a) & ~(maskk << b)
+            new |= bbits << a
+            new |= abits << b
+            out[new] = v
+        return self._wrap(self.num_vars, out)
+
+    def __add__(self, other):
+        if not isinstance(other, SparseMultilinearPolynomial):
+            return NotImplemented
+        if not self.evals:
+            return other._wrap(other.num_vars, dict(other.evals))
+        if not other.evals:
+            return self._wrap(self.num_vars, dict(self.evals))
+        assert self.num_vars == other.num_vars
+        out = dict(self.evals)
+        for i, v in other.evals.items():
+            out[i] = (out.get(i, 0) + v) % self.p
+        return self._wrap(self.num_vars, out)
+
+    def __radd__(self, other):
+        return self.__add__(other)
+
+    def __sub__(self, other):
+        if not isinstance(other, SparseMultilinearPolynomial):
+            return NotImplemented
+        neg = other._wrap(other.num_vars, {i: -v % other.p for i, v in other.evals.items()})
+        return self.__add__(neg)
+
+    def __eq__(self, other):
+        if not isinstance(other, SparseMultilinearPolynomial):
+            return NotImplemented
+        return self.num_vars == other.num_vars and self.evals == other.evals
+
+    def __str__(self):
+        return (
+            f"SparseMLPolynomial(num_vars={self.num_vars}, "
+            f"evaluations={self.to_evaluations()})"
+        )
+
+    def __repr__(self):
+        return self.__str__()
+
+
+def _mle_ext(a, p):
+    """Evaluations -> multilinear coefficients (mle.rs:9-23 recursion)."""
+    if len(a) == 1:
+        return [a[0]]
+    h = len(a) // 2
+    l_result = _mle_ext(a[:h], p)
+    r_result = _mle_ext(a[h:], p)
+    diff = [(r - l) % p for l, r in zip(l_result, r_result)]
+    return l_result + diff
+
+
+def MultilinearPolynomial(num_vars, sparse_evaluations, p, device="cuda"):
+    """Constructs Sparse Multilinear Polynomial from (index, eval) tuples."""
+    if num_vars == 0:
+        return SparseMultilinearPolynomial.zero(p, device)
+    return SparseMultilinearPolynomial(num_vars, sparse_evaluations, p, device)
 
 
 def _pad_coeffs(a, b):

@@ -8,14 +8,36 @@ BIT length (reference transcript.py:47,51), and each challenge re-seeds the
 hasher with the previous digest (:65-68). The code itself is original.
 
 Copy of zksnake_tpu/transcript.py with the port's imports. Its
-hash_to_scalar and hash_to_curve need the points' hash_to_field and
-hash_to_curve, which come with the commitment ports; PlonK uses neither.
+hash_to_scalar and hash_to_curve are host work: they take the curve's point
+class (curves.point.get_g1_class) where the JAX package builds an
+EllipticCurve, so they need no device.
 """
 
 import hashlib
 
 from .constant import BN254_SCALAR_FIELD
+from .curves.point import get_g1_class
 from .ecc import ispointG1, ispointG2
+
+
+def hash_to_scalar(data: bytes, domain_separation_tag: bytes, curve: str = "BN254"):
+    """Field element from bytes via the curve's hash_to_field."""
+    return get_g1_class(curve).hash_to_field(domain_separation_tag, data)
+
+
+def hash_to_curve(
+    data: bytes, domain_separation_tag: bytes, curve: str = "BN254", size: int = 1
+):
+    """Derive `size` G1 points; each round re-hashes the previous point's
+    compressed bytes (chain derivation, matching the reference)."""
+    cls = get_g1_class(curve)
+    out = []
+    seed = data
+    while len(out) < size:
+        pt = cls.hash_to_curve(domain_separation_tag, seed)
+        out.append(pt)
+        seed = bytes(pt.to_bytes())
+    return out[0] if size == 1 else out
 
 
 def _int_to_transcript_bytes(value: int) -> bytes:
