@@ -85,7 +85,19 @@ Phases, one line each or more:
      range proofs and the 64-element inner-product argument on both curves
      (prove, verify, a bytes round trip); GKR on tests/test_gkr.py's three
      circuits and a 10-gate, 4-layer circuit on both curves; a Merkle tree of
-     4096 leaves; the RFC 9380 BLS12-381 hash-to-curve vectors.
+     4096 leaves; the RFC 9380 BLS12-381 hash-to-curve vectors;
+ 18. sharded proving (backend/sharding.py): (a) a one-rank NCCL mesh at
+     full width: the mult chain at 2^17 constraints through
+     Groth16(r1cs, "BN254", device="cuda", mesh=mesh) (setup, a cold and a
+     warm prove, verify; the four-step QAP and the permuted key), the proof
+     byte-equal to a one-device Groth16's under the same keys and r, s, K1
+     and K2 launched (K3 and K2m not); the sharded G1 and G2 MSMs at 2^20
+     against the host oracle; the four-step NTT at 2^20 against ntt_device,
+     limb for limb; (b) 4 spawned ranks of one gloo group, all on the one
+     card: the sharded G1 and G2 MSMs at 2^16, the four-step NTT at 2^16
+     and Groth16 proves at 2^12 constraints (the sharded QAP) and at n = 8
+     (the mesh does not divide the split: the replicated QAP), every rank's
+     proofs equal to the one-device proofs.
 
 It exits non-zero on any failure, when no CUDA device is present, and when
 jax or any module of zksnake_tpu was imported. The last four lines are the
@@ -1615,10 +1627,267 @@ def phase_commitments(ctx):
         f"RFC 9380 BLS12-381 G1 vectors: equal")
 
 
+# phase 18: (a)'s four-step NTT; (b)'s ranks of one gloo group on the one
+# card and its depths
+SHARD_NTT_LOGN = 20
+SHARD_RANKS = 4
+SHARD_LOGN = {"msm": 16, "ntt": 16, "prove": 12}
+SHARD_SMALL_CHAIN = 5  # n = 8: (b)'s prove on the replicated QAP
+SHARD_REHEARSE_LOGN = {"msm": 8, "ntt": 8, "prove": 6}
+SHARD_TIMEOUT_S = 600
+
+
+def _shard_msm_check(ctx, group, group_id, logn, seed):
+    """A sharded BN254 MSM of 2^logn points (i % 64 + 1) G of `group_id`
+    from this rank's lanes, seeded scalars, against the host oracle
+    G * sum(s_i (i % 64 + 1)). Returns (seconds and launches of a warm
+    call)."""
+    from zksnake_tpu_torch.backend import sharding
+    from zksnake_tpu_torch.backend.curve_ops import get_group_spec
+    from zksnake_tpu_torch.backend.msm import scalars_to_device
+    from zksnake_tpu_torch.curves import get_curve_module
+
+    cm = get_curve_module("BN254", ctx.device)
+    curve = cm._curve
+    gs = get_group_spec(curve, group_id)
+    n = 1 << logn
+    rng = random.Random(seed + group_id)
+    P, _ = _tiled_points(gs, cm, n, ctx.device)
+    scalars = [rng.randrange(curve.r) for _ in range(n)]
+    s = scalars_to_device(scalars, curve.r, ctx.device)
+    Pl, sl = sharding.shard_lanes(gs, P, s, group)
+    sharding.sharded_msm(gs, Pl, sl, group)  # warm-up
+    res, dt, launches = _counted(ctx, lambda: sharding.sharded_msm(gs, Pl, sl, group))
+    total = sum(si * (i % 64 + 1) for i, si in enumerate(scalars)) % curve.r
+    gen, cls = (cm.g1(), cm.PointG1) if group_id == 1 else (cm.g2(), cm.PointG2)
+    if gs.points_from_device(gs.map(lambda t: t[:, None], res), cls)[0] != gen * total:
+        raise AssertionError(f"sharded G{group_id} MSM 2^{logn} differs from the host oracle")
+    return dt, _nz(launches)
+
+
+def _shard_ntt_check(ctx, group, logn, seed):
+    """The four-step NTT of 2^logn seeded BN254 Fr elements from this rank's
+    rows, limb for limb against its part of the one-device ntt_device.
+    Returns (ms of the four-step's plan.local, ms of ntt_device): CUDA
+    events over 5 calls after a warm-up (host clock on the CPU)."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from zksnake_tpu_torch.backend import sharding
+    from zksnake_tpu_torch.backend.ntt import Domain, ntt_device
+    from zksnake_tpu_torch.curves.params import CURVES
+
+    torch = ctx.torch
+    dom = Domain.get(CURVES["BN254"], 1 << logn)
+    fs = dom.fs
+    n1 = 1 << (logn // 2)
+    n2 = dom.n // n1
+    D, rank = dist.get_world_size(group), dist.get_rank(group)
+    rows, c = n1 // D, n2 // D
+    x = torch.from_numpy(_random_elems(fs, fs.nl, dom.n, np.random.default_rng(seed)))
+    x = x.to(ctx.device)
+    # j = i1 + n1 i2 at [i1, i2], this rank's rows i1
+    xl = x.reshape(fs.nl, n2, n1).transpose(1, 2)[:, rank * rows:(rank + 1) * rows].contiguous()
+    got = sharding.sharded_ntt(dom, xl, n1, group)  # (nl, n2/D, n1)
+    # output k = k2 + n2 k1 at [k2, k1], this rank's k2
+    want = ntt_device(dom, x).reshape(fs.nl, n1, n2)[:, :, rank * c:(rank + 1) * c]
+    if not torch.equal(got, want.transpose(1, 2)):
+        raise AssertionError(f"rank {rank}: the four-step NTT 2^{logn} differs from ntt_device")
+    plan = sharding.FourStepPlan(fs, dom.r, n1, n2, dom.omega)
+    tw = plan.tw_local(group, ctx.device)
+    return (ctx.time_ms(lambda: plan.local(xl, tw, group), 5),
+            ctx.time_ms(lambda: ntt_device(dom, x), 5))
+
+
+def _shard_prove(ctx, r1cs, pub, priv, mesh, seed, sharded_qap=True):
+    """Groth16(mesh=) setup (seeded waste, broadcast from rank 0) and a
+    warm prove (seeded r, s) counted by _counted, on the sharded QAP (the
+    replicated one where `sharded_qap` is false). Returns (g16, proof,
+    seconds, launches, cold prove seconds)."""
+    from zksnake_tpu_torch.groth16 import Groth16, protocol
+
+    g16 = Groth16(r1cs, "BN254", device=ctx.device, mesh=mesh)
+    with det_random(protocol, seed + "-setup"):
+        g16.setup()
+    _, t_cold, _ = _prove_counted(ctx, lambda: g16.prove(pub, priv), protocol, seed)
+    proof, t_warm, launches = _prove_counted(ctx, lambda: g16.prove(pub, priv), protocol, seed)
+    if (g16._device_prover._sqap[1] is not None) != sharded_qap:
+        raise AssertionError(f"the prove at n = {g16._device_prover.n} did not take the "
+                             f"{'sharded' if sharded_qap else 'replicated'} QAP")
+    return g16, proof, t_warm, launches, t_cold
+
+
+def _reprove(ctx, g16, r1cs, pub, priv, seed, mesh=None):
+    """The proof of a new Groth16 (on `mesh`, or one device) under g16's
+    keys and the seeded r, s."""
+    from zksnake_tpu_torch.groth16 import Groth16, protocol
+
+    other = Groth16(r1cs, "BN254", device=ctx.device, mesh=mesh)
+    other.proving_key, other.verifying_key = g16.proving_key, g16.verifying_key
+    return _prove_counted(ctx, lambda: other.prove(pub, priv), protocol, seed)
+
+
+def _shard_rank(rank, tmp, rehearse):
+    """One rank of phase 18(b): a gloo group of SHARD_RANKS ranks, every
+    rank on cuda:0 (the CPU in a rehearsal); its checks' results go to
+    rank<i>.json."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    if rehearse:
+        torch.set_num_threads(1)  # the ranks share the host's cores
+    else:
+        torch.cuda.set_device(0)
+    ctx = Ctx("cpu" if rehearse else "cuda", rehearse)
+    logn = SHARD_REHEARSE_LOGN if rehearse else SHARD_LOGN
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/rdzv", rank=rank,
+                            world_size=SHARD_RANKS)
+    try:
+        mesh = init_device_mesh(ctx.device.type, (SHARD_RANKS,), mesh_dim_names=("shards",))
+        group = mesh.get_group("shards")
+        out = {"msm": {}}
+        for gid in (1, 2):
+            out["msm"][f"G{gid}"] = _shard_msm_check(ctx, group, gid, logn["msm"], 0x5A4D)
+        out["ntt_ms"] = _shard_ntt_check(ctx, group, logn["ntt"], 18)
+        r1cs, pub, priv = _mult_chain(1 << logn["prove"], "BN254", 2)
+        seed = "phase18b"
+        g16, proof, t_warm, launches, _ = _shard_prove(ctx, r1cs, pub, priv, mesh, seed)
+        out.update(prove_s=t_warm, launches=launches, proof=proof.to_bytes().hex())
+        # n = 8 = 2 x 4: the mesh does not divide the split, so the QAP runs
+        # replicated and the MSMs sharded
+        small = _mult_chain(SHARD_SMALL_CHAIN, "BN254", 2)
+        g16_small, proof_small = _shard_prove(ctx, *small, mesh, seed + "-small", False)[:2]
+        out["proof_replicated_qap"] = proof_small.to_bytes().hex()
+        if rank == 0:
+            out["verified"] = g16.verify(proof, pub)
+        elif rank == 1:
+            out["proof_one_device"] = _reprove(ctx, g16, r1cs, pub, priv, seed)[0].to_bytes().hex()
+        elif rank == 2:
+            out["verified_small"] = g16_small.verify(proof_small, small[1])
+            out["proof_one_device_small"] = _reprove(
+                ctx, g16_small, *small, seed + "-small")[0].to_bytes().hex()
+        with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _sharded_one_rank(ctx):
+    """Phase 18(a): a one-rank NCCL mesh (gloo in a rehearsal) at full
+    width. Returns the phase's row."""
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from zksnake_tpu_torch import metrics
+
+    rehearse = ctx.rehearse
+    logn = PROVE_LOGN if not rehearse else 6
+    msm_logn = MSM_LOGN if not rehearse else 10
+    ntt_logn = SHARD_NTT_LOGN if not rehearse else 10
+    row = {"constraints": 1 << logn}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("gloo" if rehearse else "nccl", init_method=f"file://{tmp}/rdzv",
+                                rank=0, world_size=1)
+        try:
+            mesh = init_device_mesh(ctx.device.type, (1,), mesh_dim_names=("shards",))
+            group = mesh.get_group("shards")
+            r1cs, pub, priv = _mult_chain(1 << logn, "BN254", 2)
+            seed = "phase18a"
+            metrics.enable()
+            metrics.reset()
+            t0 = time.perf_counter()
+            g16, proof, t_warm, launches, t_cold = _shard_prove(ctx, r1cs, pub, priv, mesh, seed)
+            row["setup_and_proves_s"] = time.perf_counter() - t0
+            row["phases"] = {k: v["seconds"] for k, v in metrics.report().items()}
+            metrics.enable(False)
+            t0 = time.perf_counter()
+            ok = g16.verify(proof, pub)
+            row["verify_s"] = time.perf_counter() - t0
+            one, t_one, launches_one = _reprove(ctx, g16, r1cs, pub, priv, seed)
+            if not ok or proof.to_bytes() != one.to_bytes():
+                raise AssertionError("the one-rank sharded proof does not verify or differs "
+                                     "from the one-device proof")
+            _require_launches(ctx, "sharded Groth16 BN254 warm prove", launches, K_DEFAULT,
+                              K_FLAG_ONLY)
+            ctx.paths["bn254_prove_warm_sharded1"] = launches
+            row.update(prove_cold_s=t_cold, prove_warm_s=t_warm, launches_warm=_nz(launches),
+                       one_device_prove_s=t_one, one_device_launches=_nz(launches_one))
+            for gid in (1, 2):
+                row[f"msm_g{gid}"] = _shard_msm_check(ctx, group, gid, msm_logn, 0xBEEF)
+            row["ntt_ms"] = _shard_ntt_check(ctx, group, ntt_logn, 20)
+        finally:
+            dist.destroy_process_group()
+    log(f"[18a] one-rank mesh: Groth16 BN254 2^{logn} setup and two proves "
+        f"{row['setup_and_proves_s']:.3f} s, prove cold {t_cold:.3f} s, warm {t_warm:.3f} s "
+        f"(launches {row['launches_warm']}); one-device prove under the same keys and r, s "
+        f"(its first: the key moves to the card) {t_one:.3f} s (launches "
+        f"{row['one_device_launches']}); byte-equal, verifies")
+    log("[18a] phases " + json.dumps(row["phases"]))
+    for gid in (1, 2):
+        log(f"[18a] sharded G{gid} MSM 2^{msm_logn}: equals the host oracle; "
+            f"{row[f'msm_g{gid}'][0]:.4f} s, launches {row[f'msm_g{gid}'][1]}")
+    log(f"[18a] four-step NTT 2^{ntt_logn}: equals ntt_device limb for limb; "
+        f"{row['ntt_ms'][0]:.3f} ms (ntt_device {row['ntt_ms'][1]:.3f} ms)")
+    return row
+
+
+def _sharded_four_ranks(ctx):
+    """Phase 18(b): SHARD_RANKS spawned ranks of one gloo group on the card.
+    Returns their rows; raises on any rank's failure or the timeout."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as tmp:
+        spawned = mp.spawn(_shard_rank, args=(tmp, ctx.rehearse), nprocs=SHARD_RANKS,
+                           join=False)
+        deadline = time.monotonic() + SHARD_TIMEOUT_S
+        try:
+            while not spawned.join(timeout=1):
+                if time.monotonic() > deadline:
+                    raise TimeoutError(f"phase 18(b)'s ranks ran past {SHARD_TIMEOUT_S} s")
+        finally:
+            for proc in spawned.processes:
+                if proc.is_alive():
+                    proc.kill()
+                proc.join(10)
+        rows = []
+        for rank in range(SHARD_RANKS):
+            with open(os.path.join(tmp, f"rank{rank}.json")) as f:
+                rows.append(json.load(f))
+    want, want_small = rows[1]["proof_one_device"], rows[2]["proof_one_device_small"]
+    if not rows[0]["verified"] or not rows[2]["verified_small"] or any(
+            r["proof"] != want or r["proof_replicated_qap"] != want_small for r in rows):
+        raise AssertionError("phase 18(b): the ranks' proofs differ from the one-device proof "
+                             "or do not verify")
+    for r in rows:
+        _require_launches(ctx, "sharded Groth16 on 4 ranks", r["launches"], K_DEFAULT, K_FLAG_ONLY)
+    return rows
+
+
+def phase_sharded(ctx):
+    row = _sharded_one_rank(ctx)
+    t0 = time.perf_counter()
+    rows = _sharded_four_ranks(ctx)
+    row["four_ranks"] = {"seconds": time.perf_counter() - t0, "ranks": rows}
+    ctx.detail["sharded"] = row
+    lg = SHARD_REHEARSE_LOGN if ctx.rehearse else SHARD_LOGN
+    for rank, r in enumerate(rows):
+        log(f"[18b] rank {rank}/{SHARD_RANKS}: G1 / G2 MSM 2^{lg['msm']} "
+            f"{r['msm']['G1'][0]:.4f} / {r['msm']['G2'][0]:.4f} s, four-step NTT 2^{lg['ntt']} "
+            f"{r['ntt_ms'][0]:.3f} ms (one device {r['ntt_ms'][1]:.3f} ms), Groth16 "
+            f"2^{lg['prove']} warm prove {r['prove_s']:.3f} s, launches {_nz(r['launches'])}")
+    log(f"[18b] {SHARD_RANKS} gloo ranks on one device in {row['four_ranks']['seconds']:.3f} s: "
+        f"MSMs equal the host oracle, NTTs equal ntt_device, every rank's proofs (sharded QAP "
+        f"at 2^{lg['prove']}, replicated QAP at n = 8) equal the one-device proofs and verify")
+
 PHASES = [phase_build, phase_k1, phase_k3, phase_k2, phase_k2m, phase_msm, phase_msm_mma,
           phase_msm_g2, phase_fixtures, phase_plonk_fixtures, phase_bn254, phase_bls12_381,
           phase_plonk, phase_relayout, phase_g2_block, phase_sumcheck, phase_kzg,
-          phase_commitments]
+          phase_commitments, phase_sharded]
 
 # the kernel libraries each phase launches: phase 0 builds those of the
 # chosen phases, and K1's always (every wrapper reports a launch error with
@@ -1627,7 +1896,8 @@ _K2_LIBS = ("bucket16", "bucket24")
 _K2M_LIBS = ("bucket_mma16", "bucket_mma24")
 _PROVE_LIBS = ("montmul_mma",) + _K2_LIBS + _K2M_LIBS
 PHASE_LIBS = [(), (), ("montmul_mma",), _K2_LIBS, ("montmul_mma",) + _K2_LIBS + _K2M_LIBS,
-              *[_PROVE_LIBS] * 8, ("relayout",), ("g2_block",), (), _K2_LIBS, ("bucket16",)]
+              *[_PROVE_LIBS] * 8, ("relayout",), ("g2_block",), (), _K2_LIBS, ("bucket16",),
+              ("bucket16",)]
 
 # kernel -> (source, the TPU kernel it replaces, the main-path run its
 # launch count is read from)

@@ -1,6 +1,6 @@
 """Fused device pipeline for the Groth16 prover, on torch.
 
-Port of the single-device part of zksnake_tpu/backend/groth16_device.py:
+Port of zksnake_tpu/backend/groth16_device.py:
 
     witness limbs -> SpMV (Az, Bz, Cz) -> iNTT x3 -> 2n-NTT product -> iNTT
       -> vanishing-polynomial fold -> raw scalar limbs -> five MSMs
@@ -8,11 +8,16 @@ Port of the single-device part of zksnake_tpu/backend/groth16_device.py:
 against a device-resident proving key, plus the device trusted setup
 (tau-power scan, Lagrange coefficients by batched inversion, L/R/O as
 transpose SpMVs, fixed-base batch muls). The host sees only the result
-points and the divisibility flag.
+points and the divisibility flag. Given a mesh's process group,
+prove_msms runs the same prove on every rank of it, each rank on its share
+of the QAP and of the MSMs' lanes (backend/sharding.py).
 """
+
+import sys
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .curve_ops import get_group_spec
 from .field import (
@@ -25,8 +30,9 @@ from .field import (
     prefix_prod,
     to_mont,
 )
-from .msm import _pick_window, batch_mul_fixed_base_raw, msm_device_raw, msm_pippenger_many
+from .msm import _pick_window, batch_mul_fixed_base_raw, msm_pippenger_many
 from .ntt import Domain, intt_device, ntt_device
+from .sharding import FourStepPlan, all_ok, shard_lanes, sharded_msm_many
 from .spmv import DeviceSparseMatrix, segment_sum_field
 
 
@@ -47,6 +53,8 @@ class Groth16DeviceProver:
         self.C = DeviceSparseMatrix.from_sparse_array(fr, qap.c, self.device)
         self._pk_dev = None
         self._w_pows = None
+        self._sqap = None
+        self._pk_perm = None
 
     def _limbs(self, ints):
         fr = self.fr
@@ -83,6 +91,107 @@ class Groth16DeviceProver:
         if not ok:
             raise ValueError("(U * V - W) did not divided by Z to zero")
         return u, v, h
+
+    # ------------------------------------------------------------------
+    # Sharded QAP: one rank's part of witness -> U, V, H
+    #
+    # The SpMV of the rank's constraint rows, three inverse four-step NTTs
+    # (one batch), two forward 2n four-steps (one batch), the product, the
+    # inverse 2n four-step and the x^n - 1 fold, all on the rank's rows:
+    # each four-step's output layout is the next one's input layout
+    # (sharding.FourStepPlan), so the only collectives are the four-steps'
+    # all_to_alls and one all_reduce of the divisibility flag. U, V and H
+    # stay split in the "pos" layout, pos = k2 n1 + k1 holding coefficient
+    # m = k2 + n2 k1, rank i holding pos in [i n/D, (i + 1) n/D); the MSMs
+    # pair them with the rank's slice of a permuted proving key
+    # (_pk_permuted).
+    # ------------------------------------------------------------------
+
+    def _sharded_qap(self, group):
+        """The sharded QAP of `group` (built once, cached with the group it
+        was built for), or None where the mesh does not divide the split:
+        the QAP then runs replicated and only the MSMs are sharded, as in
+        the JAX package."""
+        if self._sqap is None or self._sqap[0] is not group:
+            out = self._build_sharded_qap(group)
+            if out is None:
+                print(
+                    f"[zksnake] sharded QAP unavailable for n={self.n} on a "
+                    f"{dist.get_world_size(group)}-device mesh (split does not "
+                    f"divide); QAP runs replicated, MSMs stay sharded",
+                    file=sys.stderr, flush=True,
+                )
+            self._sqap = (group, out)
+        return self._sqap[1]
+
+    def _build_sharded_qap(self, group):
+        fr = self.fr
+        r = fr.p
+        n = self.n
+        D = dist.get_world_size(group)
+        rank = dist.get_rank(group)
+        k = n.bit_length() - 1
+        n1 = 1 << (k // 2)
+        n2 = n // n1
+        if n1 % D or n2 % D or (2 * n1) % D:
+            return None
+        plans = (
+            FourStepPlan(fr, r, n1, n2, self.dom.omega_inv, scale=pow(n, -1, r)),
+            FourStepPlan(fr, r, n2, 2 * n1, self.dom2.omega),
+            FourStepPlan(fr, r, 2 * n1, n2, self.dom2.omega_inv, scale=pow(2 * n, -1, r)),
+        )
+        tws = [p.tw_local(group, self.device) for p in plans]
+
+        # the rank's triplets of A|B|C as one SpMV: constraint row `row` sits
+        # at (i1, i2) = (row % n1, row // n1) and belongs to rank i1 // rows1;
+        # its segment is matrix * rows_local + (i1 % rows1) n2 + i2
+        rows1 = n1 // D
+        rows_local = rows1 * n2
+        segs, cols, vals = [], [], []
+        for m_i, mat in enumerate((self.A, self.B, self.C)):
+            i1 = mat.rows % n1
+            mine = i1 // rows1 == rank
+            segs.append(m_i * rows_local + (i1[mine] % rows1) * n2 + mat.rows[mine] // n1)
+            cols.append(mat.cols[mine])
+            vals.append(mat.vals[:, mine])
+        segs, cols, vals = torch.cat(segs), torch.cat(cols), torch.cat(vals, dim=1)
+
+        def eval_fn(witness_ints):
+            w = to_mont(fr, self._limbs(witness_ints))
+            terms = mont_mul(fr, vals, w[:, cols])
+            abc = segment_sum_field(fr, terms, segs, 3 * rows_local)
+            uvw = plans[0].local(abc.reshape(fr.nl, 3, rows1, n2), tws[0], group)
+            # uvw: (nl, 3, n2/D, n1) coefficients of U, V, W
+            uv2 = torch.cat([uvw[:, :2], torch.zeros_like(uvw[:, :2])], dim=-1)
+            ev = plans[1].local(uv2, tws[1], group)  # (nl, 2, 2 n1/D, n2)
+            qc = plans[2].local(mont_mul(fr, ev[:, 0], ev[:, 1]), tws[2], group)
+            # qc: (nl, n2/D, 2 n1) coefficients of U V; H = its top half and
+            # the remainder T_i + H_i of T = U V - W must vanish
+            h = qc[..., n1:]
+            r_col = mod_add(fr, mod_sub(fr, qc[..., :n1], uvw[:, 2]), h)
+            if not all_ok(bool((r_col == 0).all()), group, self.device):
+                raise ValueError("(U * V - W) did not divided by Z to zero")
+            return tuple(from_mont(fr, t).reshape(fr.nl, -1) for t in (uvw[:, 0], uvw[:, 1], h))
+
+        eval_fn.n1, eval_fn.n2 = n1, n2
+        return eval_fn
+
+    def _pk_permuted(self, pkd, n1, n2, group):
+        """This rank's slice of tau1, tau2 and target1 in the sharded QAP's
+        pos layout (pos = k2 n1 + k1 holds coefficient m = k2 + n2 k1),
+        cached for the key `pkd`; kdelta1 stays in natural order."""
+        if self._pk_perm is None or self._pk_perm[0] is not pkd:
+            w = self.n // dist.get_world_size(group)
+            lo = dist.get_rank(group) * w
+            pos = torch.arange(lo, lo + w, device=self.device)
+            idx = pos // n1 + n2 * (pos % n1)
+            groups = {"tau1": 1, "tau2": 2, "target1": 1}
+            perm = {
+                name: get_group_spec(self.curve, g).map(lambda t: t[..., idx], pkd[name])
+                for name, g in groups.items()
+            }
+            self._pk_perm = (pkd, perm)
+        return self._pk_perm[1]
 
     # ------------------------------------------------------------------
     # Device trusted setup
@@ -211,33 +320,51 @@ class Groth16DeviceProver:
             self._pk_dev = dict(state["pk"])
 
     @torch.inference_mode()
-    def prove_msms(self, pk, witness_ints, private_witness, point_cls_g1, point_cls_g2):
+    def prove_msms(self, pk, witness_ints, private_witness, point_cls_g1, point_cls_g2,
+                   group=None):
         """QAP and the five MSMs of Groth16.prove on the device; returns host
-        points (msmA, msmB1, msmB2, msmHZ, msmKpriv)."""
+        points (msmA, msmB1, msmB2, msmHZ, msmKpriv).
+
+        With a mesh's process group `group`, every rank of it calls this
+        (SPMD) and gets the same five points: the QAP is sharded over the
+        ranks where the mesh divides its split (replicated otherwise), and
+        every MSM runs on the rank's lanes, one all_gather of partial
+        points for the G1 MSMs and one for the G2 MSM. U, V, H of the
+        sharded QAP are the rank's already, against its slice of the
+        permuted key; the replicated QAP's and K-private's are padded to a
+        multiple of the mesh and split (shard_lanes)."""
         from ..metrics import phase
 
         g1 = get_group_spec(self.curve, 1)
         g2 = get_group_spec(self.curve, 2)
         n = self.n
-        with phase("groth16.prove.qap", items=n):
-            u, v, h = self.evaluate_witness_device(witness_ints)
+        sq = None if group is None else self._sharded_qap(group)
+        with phase("groth16.prove.qap_sharded" if sq is not None else "groth16.prove.qap", items=n):
+            u, v, h = (sq or self.evaluate_witness_device)(witness_ints)
         pkd = self.pk_device(pk)
+        pk_msm = self._pk_permuted(pkd, sq.n1, sq.n2, group) if sq is not None else pkd
 
-        def cut(gs, P, k):
-            return gs.map(lambda t: t[..., :k], P)
+        def job(gs, P, s, split=True):
+            """(points, scalars) of this device's or rank's lanes."""
+            P = gs.map(lambda t: t[..., :s.shape[1]], P)
+            return (P, s) if group is None or not split else shard_lanes(gs, P, s, group)
 
-        with phase("groth16.prove.msm", items=4 * n):
-            # the G1 MSMs share one window size, so their reductions run
-            # as one batch (msm_pippenger_many)
-            jobs = [(cut(g1, pkd["tau1"], n), u), (cut(g1, pkd["tau1"], n), v),
-                    (cut(g1, pkd["target1"], n), h)]
+        def msm(gs, jobs):
+            if group is None:
+                return msm_pippenger_many(gs, jobs, _pick_window(n))
+            return sharded_msm_many(gs, jobs, group)
+
+        with phase("groth16.prove.msm_sharded" if group is not None else "groth16.prove.msm", items=4 * n):
+            split = sq is None
+            jobs = [job(g1, pk_msm["tau1"], u, split), job(g1, pk_msm["tau1"], v, split),
+                    job(g1, pk_msm["target1"], h, split)]
             k = len(private_witness)
             if k > 0:
-                jobs.append((cut(g1, pkd["kdelta1"], k), self._limbs(private_witness)))
-            g1_out = g1.points_from_device(
-                msm_pippenger_many(g1, jobs, _pick_window(n)), point_cls_g1
-            )
-            msm_b2 = msm_device_raw(g2, cut(g2, pkd["tau2"], n), v)
-            b2 = g2.points_from_device(g2.map(lambda t: t[:, None], msm_b2), point_cls_g2)[0]
+                jobs.append(job(g1, pkd["kdelta1"], self._limbs(private_witness)))
+            # the G1 MSMs share one window size, so their reductions run
+            # as one batch (msm_pippenger_many)
+            g1_out = g1.points_from_device(msm(g1, jobs), point_cls_g1)
+            b2 = g2.points_from_device(msm(g2, [job(g2, pk_msm["tau2"], v, split)]),
+                                       point_cls_g2)[0]
         msm_k = g1_out[3] if k > 0 else point_cls_g1.identity()
         return [g1_out[0], g1_out[1], b2, g1_out[2], msm_k]

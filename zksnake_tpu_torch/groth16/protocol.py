@@ -10,6 +10,11 @@ iNTT -> 2n product -> vanishing fold -> 5 MSMs for prove) on the torch
 reference's bignum loops and runs for a tau that is a domain element
 (tau^n = 1), which the device Lagrange step cannot take.
 Verifying is host pairing arithmetic.
+
+With a mesh, every rank of the mesh's process group runs this same program
+(SPMD): each builds the same keys and proves with the same r, s, drawn on
+rank 0 and broadcast, and the prove shards the QAP and the MSMs over the
+ranks (backend/sharding.py).
 """
 
 from ..arithmetization.r1cs import R1CS
@@ -28,7 +33,26 @@ class Groth16:
     proving on the torch `device` ("cuda" unless the caller asks for the
     CPU; raises if CUDA is asked for and missing)."""
 
-    def __init__(self, r1cs: R1CS, curve: str = "BN254", device="cuda"):
+    def __init__(self, r1cs: R1CS, curve: str = "BN254", device="cuda", mesh=None):
+        """`mesh` opts into sharded proving: a 1-D torch DeviceMesh
+        (backend.sharding.make_mesh builds one). Every rank of it constructs
+        this object and calls setup and prove; a rank proves on
+        cuda:(rank % cards) when `device` is CUDA without an index. The
+        mesh's device type must be `device`'s."""
+        self._group = None
+        if mesh is not None:
+            from ..backend.config import check_device
+            from ..backend.sharding import rank_device
+
+            device = check_device(device)
+            if mesh.device_type != device.type:
+                raise ValueError(
+                    f"a {mesh.device_type} mesh cannot drive a prover on {device}"
+                )
+            if mesh.ndim != 1:
+                raise ValueError(f"the mesh must be 1-D, not {mesh.ndim}-D")
+            self._group = mesh.get_group(0)
+            device = rank_device(device)
         self.E = EllipticCurve(curve, device)
         self.device = self.E.device
         self.order = self.E.order
@@ -53,10 +77,24 @@ class Groth16:
 
     # -- setup ------------------------------------------------------------
 
+    def _random_ints(self, count):
+        """`count` random scalars in [1, r - 1]; on a mesh, rank 0's draws,
+        broadcast, so every rank builds the same keys and proof."""
+        if self._group is None:
+            return [get_random_int(self.order - 1) for _ in range(count)]
+        import torch.distributed as dist
+
+        from ..backend.sharding import broadcast_ints
+
+        mine = dist.get_rank(self._group) == 0
+        return broadcast_ints(
+            [get_random_int(self.order - 1) for _ in range(count)] if mine else [],
+            self._group,
+        )
+
     def setup(self):
         """Trusted setup: sample toxic waste and derive both keys."""
-        waste = [get_random_int(self.order - 1) for _ in range(5)]
-        self._setup_from_waste(*waste)
+        self._setup_from_waste(*self._random_ints(5))
 
     def _setup_from_waste(self, tau, alpha, beta, gamma, delta):
         """Key generation from explicit toxic waste (deterministic tests).
@@ -149,14 +187,13 @@ class Groth16:
         if len(self.proving_key.kdelta_1) != len(private_witness):
             raise ValueError("Length of kdelta_1 and private_witness must be equal")
 
-        r = get_random_int(self.order - 1)
-        s = get_random_int(self.order - 1)
+        r, s = self._random_ints(2)
         full_witness = public_witness + private_witness
 
         try:
             parts = self._get_device_prover().prove_msms(
                 self.proving_key, full_witness, private_witness,
-                self.E.curve.PointG1, self.E.curve.PointG2,
+                self.E.curve.PointG1, self.E.curve.PointG2, group=self._group,
             )
         except ValueError as exc:
             raise ValueError("Failed to evaluate with the given witness") from exc
