@@ -1,0 +1,147 @@
+"""The port's metrics (zksnake_tpu_torch.metrics): nested spans with self
+time and inclusive counters, no-ops when disabled, and the MSM's spans and
+point-op counter on a CPU MSM (the kernels' plain versions)."""
+
+import time
+
+import numpy as np
+import pytest
+import torch
+
+from zksnake_tpu_torch import metrics
+from zksnake_tpu_torch.backend import msm as tmsm
+from zksnake_tpu_torch.backend.curve_ops import get_group_spec
+from zksnake_tpu_torch.curves import get_curve_module
+
+torch.set_num_threads(1)
+
+PORT = get_curve_module("BN254", "cpu")
+CURVE = PORT._curve
+REDUCE_CHILDREN = ("msm.reduce.top", "msm.reduce.scan", "msm.reduce.tree", "msm.reduce.horner")
+
+
+@pytest.fixture(autouse=True)
+def metrics_off():
+    metrics.enable(False)
+    metrics.reset()
+    yield
+    metrics.enable(False)
+    metrics.reset()
+
+
+def reduce_point_ops(r, c, nbits=256):
+    """Point ops of one reduction pass (reduce_buckets), by stage: the
+    top-window fold over S_top sub-buckets, the suffix scan, the window
+    tree, and Horner's c doublings and one add a window."""
+    W = -(-nbits // c)
+    B2 = 1 << (c - 1)
+    V_top = (r >> (c * (W - 1))) + 2
+    V_cap = 1 << (V_top - 1).bit_length()
+    S_top = B2 // V_cap if V_cap < B2 else 1
+    return {"msm.reduce.top": S_top.bit_length() - 1, "msm.reduce.scan": c - 1,
+            "msm.reduce.tree": c - 1, "msm.reduce.horner": c * W + W}
+
+
+def test_nested_spans_hold_their_children():
+    metrics.enable()
+    with metrics.phase("outer", items=5):
+        time.sleep(0.01)
+        metrics.count("ops", 2)
+        for _ in range(2):
+            with metrics.phase("inner"):
+                time.sleep(0.01)
+                metrics.count("ops")
+                metrics.count("other", 3)
+    rep = metrics.report()
+    outer, inner = rep["outer"], rep["inner"]
+    assert inner["parent"] == "outer" and "parent" not in outer
+    assert (outer["calls"], inner["calls"], outer["items"]) == (1, 2, 5)
+    assert inner["seconds"] <= outer["seconds"]
+    assert outer["self_seconds"] == pytest.approx(outer["seconds"] - inner["seconds"], abs=2e-6)
+    assert outer["self_seconds"] >= 0.01
+    assert inner["self_seconds"] == inner["seconds"]
+    assert (outer["ops"], inner["ops"]) == (4, 2)
+    assert (outer["other"], inner["other"]) == (6, 6)
+
+
+def test_count_outside_spans_or_disabled_records_nothing():
+    metrics.enable()
+    metrics.count("ops", 7)
+    assert metrics.report() == {}
+    metrics.enable(False)
+    with metrics.phase("a"):
+        metrics.count("ops")
+    assert metrics.report() == {}
+
+
+def test_disabled_report_stays_empty():
+    with metrics.phase("a", items=3):
+        with metrics.phase("b"):
+            metrics.count("ops")
+    assert metrics.report() == {}
+    assert metrics._OPEN == []
+
+
+def test_closed_form_at_the_benchmark_size():
+    """2^16 points: c = 11, W = 24, S_top = 256, so 316 point ops a pass."""
+    assert tmsm._pick_window(1 << 16) == 11
+    assert sum(reduce_point_ops(CURVE.r, 11).values()) == 316
+
+
+def _msm_jobs(gs, n, seed):
+    g = PORT.g1()
+    points, P = [], g * 7
+    for _ in range(n):
+        points.append(P)
+        P = P + g * (11 + seed)
+    rng = np.random.default_rng(seed)
+    scalars = [int.from_bytes(rng.bytes(32), "little") % CURVE.r for _ in range(n)]
+    return (gs.points_to_device(points, "cpu"), tmsm.scalars_to_device(scalars, CURVE.r, "cpu"))
+
+
+@pytest.fixture(scope="module", params=[3, 5])
+def msm_runs(request):
+    """Two G1 MSMs of 64 points in one msm_pippenger_many at window c,
+    with metrics off, then on: (c, result off, result on, report on)."""
+    c = request.param
+    gs = get_group_spec(CURVE, 1)
+    jobs = [_msm_jobs(gs, 64, 1), _msm_jobs(gs, 64, 2)]
+    metrics.enable(False)
+    metrics.reset()
+    off = tmsm.msm_pippenger_many(gs, jobs, c)
+    assert metrics.report() == {}
+    metrics.enable()
+    try:
+        on = tmsm.msm_pippenger_many(gs, jobs, c)
+        rep = metrics.report()
+    finally:
+        metrics.enable(False)
+        metrics.reset()
+    return c, off, on, rep
+
+
+def test_msm_spans_split_every_pass(msm_runs):
+    _, _, _, rep = msm_runs
+    assert rep["msm.sort"]["calls"] == 2 and rep["msm.accumulate"]["calls"] == 2
+    assert rep["msm.reduce"]["calls"] == 1
+    for name in REDUCE_CHILDREN:
+        assert rep[name]["calls"] == 1 and rep[name]["parent"] == "msm.reduce"
+    children = sum(rep[name]["seconds"] for name in REDUCE_CHILDREN)
+    assert children <= rep["msm.reduce"]["seconds"] + 1e-5
+    assert rep["msm.reduce"]["self_seconds"] == pytest.approx(
+        rep["msm.reduce"]["seconds"] - children, abs=1e-5)
+
+
+def test_msm_reduce_point_ops_closed_form(msm_runs):
+    c, _, _, rep = msm_runs
+    want = reduce_point_ops(CURVE.r, c)
+    assert want["msm.reduce.top"] > 0  # both sizes spread the top window
+    assert rep["msm.reduce"]["point_ops"] == sum(want.values())
+    for name, ops in want.items():
+        assert rep[name]["point_ops"] == ops
+
+
+def test_msm_result_same_with_metrics_on_and_off(msm_runs):
+    _, off, on, _ = msm_runs
+    for a, b in zip(get_group_spec(CURVE, 1).leaves(off), get_group_spec(CURVE, 1).leaves(on)):
+        assert a.dtype == b.dtype and torch.equal(a, b)

@@ -8,12 +8,15 @@ A G1 point is a tuple (X, Y, Z) of (nl, *batch) tensors; a G2 point is
 
 The products of each dependency level are stacked into one mont_mul
 (`mul_many`), so a point op makes a few wide K1 launches instead of a dozen
-narrow ones.
+narrow ones. Each add, double and mixed add counts one "point_ops" in
+the open metrics spans (zksnake_tpu_torch.metrics.count), whatever the
+batch.
 """
 
 import numpy as np
 import torch
 
+from .. import metrics
 from .field import (
     DTYPE,
     FieldSpec,
@@ -236,6 +239,7 @@ class GroupSpec:
     # ---------- formulas ----------
     def add(self, P, Q):
         """Complete projective addition (RCB15 Algorithm 7, a = 0)."""
+        metrics.count("point_ops")
         F = self.F
         X1, Y1, Z1 = P
         X2, Y2, Z2 = Q
@@ -260,6 +264,7 @@ class GroupSpec:
 
     def double(self, P):
         """Complete doubling (RCB15 Algorithm 9, a = 0)."""
+        metrics.count("point_ops")
         F = self.F
         X, Y, Z = P
         b3 = self.b3(self.leaves(P)[0].device)
@@ -279,6 +284,7 @@ class GroupSpec:
         """Complete mixed addition (RCB15 Algorithm 8, a = 0): Q = (X2, Y2)
         affine with Z2 = 1. Q must not be the identity (mask it in the
         caller's select); P may be anything, including Q or -Q."""
+        metrics.count("point_ops")
         F = self.F
         X1, Y1, Z1 = P
         X2, Y2 = Q

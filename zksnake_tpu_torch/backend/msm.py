@@ -17,6 +17,11 @@ Pippenger of the JAX package:
 - the suffix-scan weighted reduction over every window at once, then a
   Horner pass across windows.
 
+With metrics on (zksnake_tpu_torch.metrics), each stage is a span:
+msm.sort, msm.accumulate and msm.reduce, the last with the children
+msm.reduce.top, .scan, .tree and .horner; curve_ops counts the point ops
+inside them.
+
 The JAX package's round table, its gather, the static round budget, the
 remainder loop and the lane caps fitted Mosaic's fixed grid and are not
 ported. G2 runs the same Pippenger (no double-and-add detour).
@@ -25,6 +30,7 @@ ported. G2 runs the same Pippenger (no double-and-add detour).
 import numpy as np
 import torch
 
+from .. import metrics
 from . import config, kernels
 from .curve_ops import get_group_spec
 from .field import DTYPE, FieldSpec
@@ -180,36 +186,40 @@ def reduce_buckets(gs, buckets, c, S_top, V_cap):
     lead = gs.leaves(buckets)[0]
     dev = lead.device
     M, Wn = lead.shape[1], lead.shape[2]
-    if S_top > 1:
-        # lane j*V_cap + (b-1) holds a partial sum of top bucket b: fold
-        # the S_top slots, then pad with identity back to B2 lanes
-        top = gs.map(
-            lambda t: t[:, :, 0].reshape(t.shape[0], M, S_top, V_cap).transpose(2, 3),
-            buckets,
-        )
-        top = _tree_reduce(gs, top, S_top)  # (nl, M, V_cap) leaves
-        ident = gs.identity((M, B2 - V_cap), dev)
-        padded = gs.map(lambda a, b: torch.cat([a, b], dim=-1), top, ident)
-        buckets = gs.map(
-            lambda t, pw: torch.cat([pw[:, :, None], t[:, :, 1:]], dim=2), buckets, padded
-        )
+    with metrics.phase("msm.reduce.top"):
+        if S_top > 1:
+            # lane j*V_cap + (b-1) holds a partial sum of top bucket b: fold
+            # the S_top slots, then pad with identity back to B2 lanes
+            top = gs.map(
+                lambda t: t[:, :, 0].reshape(t.shape[0], M, S_top, V_cap).transpose(2, 3),
+                buckets,
+            )
+            top = _tree_reduce(gs, top, S_top)  # (nl, M, V_cap) leaves
+            ident = gs.identity((M, B2 - V_cap), dev)
+            padded = gs.map(lambda a, b: torch.cat([a, b], dim=-1), top, ident)
+            buckets = gs.map(
+                lambda t, pw: torch.cat([pw[:, :, None], t[:, :, 1:]], dim=2), buckets, padded
+            )
 
     # sum_b (b+1) S_b = sum_{b>=0} T_b with T_b = sum_{j>=b} S_j: suffix sums
     # by a log-depth roll scan on the bucket axis, all windows at once
-    iota_b = torch.arange(B2, device=dev)
-    T = buckets
-    for i in range(c - 1):
-        sh = 1 << i
-        Q = gs.map(lambda t: torch.roll(t, -sh, dims=-1), T)
-        T = gs.select(iota_b < B2 - sh, gs.add(T, Q), T)
-    wsums = _tree_reduce(gs, T, B2)  # (nl, M, W) leaves
+    with metrics.phase("msm.reduce.scan"):
+        iota_b = torch.arange(B2, device=dev)
+        T = buckets
+        for i in range(c - 1):
+            sh = 1 << i
+            Q = gs.map(lambda t: torch.roll(t, -sh, dims=-1), T)
+            T = gs.select(iota_b < B2 - sh, gs.add(T, Q), T)
+    with metrics.phase("msm.reduce.tree"):
+        wsums = _tree_reduce(gs, T, B2)  # (nl, M, W) leaves
 
     # Horner across windows (high window first): R <- R * 2^c + w_j
-    Rpt = gs.identity((M,), dev)
-    for j in range(Wn):
-        for _ in range(c):
-            Rpt = gs.double(Rpt)
-        Rpt = gs.add(Rpt, gs.map(lambda t: t[:, :, j], wsums))
+    with metrics.phase("msm.reduce.horner"):
+        Rpt = gs.identity((M,), dev)
+        for j in range(Wn):
+            for _ in range(c):
+                Rpt = gs.double(Rpt)
+            Rpt = gs.add(Rpt, gs.map(lambda t: t[:, :, j], wsums))
     return Rpt
 
 
@@ -223,11 +233,14 @@ def msm_pippenger_many(gs, jobs, c):
     accumulate = kernels.bucket_accumulate_mma if mma else kernels.bucket_accumulate
     sums = []
     for P, slimbs in jobs:
-        pts, starts, lens, S_top, V_cap = sort_by_digit(gs, P, slimbs, c)
-        sums.append(accumulate(gs, pts, starts, lens))
+        with metrics.phase("msm.sort"):
+            pts, starts, lens, S_top, V_cap = sort_by_digit(gs, P, slimbs, c)
+        with metrics.phase("msm.accumulate"):
+            sums.append(accumulate(gs, pts, starts, lens))
         del pts
     buckets = torch.stack(sums, dim=2)  # (3|6, nl, M, W, B2)
-    return reduce_buckets(gs, gs.unflatten(list(buckets)), c, S_top, V_cap)
+    with metrics.phase("msm.reduce"):
+        return reduce_buckets(gs, gs.unflatten(list(buckets)), c, S_top, V_cap)
 
 
 def msm_pippenger(gs, P, slimbs, c=13):
