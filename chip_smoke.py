@@ -30,8 +30,8 @@ Phases, one line each or more:
      timed in turns with K2;
   5. a device-resident BN254 G1 MSM at 2^20 against the host oracle
      G * sum(s_i (i % 64 + 1)) for points (i % 64 + 1) G;
-  6. the same MSM with ZKSNAKE_MXU_MONTMUL=1 (K3 for the large products, K2m
-     for the buckets);
+  6. the same MSM with ZKSNAKE_MXU_MONTMUL=1 (K2m for the buckets; the
+     reduction is K4's under the flag too);
   7. the same MSM over BN254 G2 at 2^20, against G2 * sum(s_i (i % 64 + 1));
   8. the pinned proof fixtures tests/fixtures/groth16_{bn254,bls12_381}.hex
      reproduced on the card under the deterministic randomness streams;
@@ -44,12 +44,14 @@ Phases, one line each or more:
  11. a main path: the same at 2^17 over BLS12-381, a cold and a warm prove by
      default, then a warm prove with ZKSNAKE_MXU_MONTMUL=1 under the same
      r, s: the two proofs are byte-equal and verify, and K3 and K2m launch
-     (and K2 does not) only under the flag, K3 at K3_PATH_WIDTHS' widths;
+     (and K2 does not) only under the flag, K4 with and without it, K3 at
+     K3_PATH_WIDTHS' widths;
  12. a main path: the mult chain at 2^15 gates through Plonk(plonkish,
      "BN254", device="cuda"): front end, setup, a cold and a warm prove,
      verify, then a warm prove with ZKSNAKE_MXU_MONTMUL=1 under the same 11
-     blinds: byte-equal proofs that verify; K1 and K2 launch without the
-     flag, K1, K3 and K2m (and no K2) under it, K3 at K3_PATH_WIDTHS' widths;
+     blinds: byte-equal proofs that verify; K1, K2 and K4 launch without
+     the flag, K3, K2m and K4 (and no K2) under it, K3 at K3_PATH_WIDTHS'
+     widths;
  13. a measurement path: every stage of zksnake_tpu_torch.scripts.bench_sortdma
      at its full shapes (n = 2^20, B2 = 4096, R = 385 / 392, NL = 16,
      M = 6272), each S1-S8 kernel launched on it; then each of them against
@@ -75,13 +77,13 @@ Phases, one line each or more:
  16. KZG at 2^20 coefficients (BN254) and 4096 (BLS12-381): setup under a
      seeded tau, commit (equal to G1 * f(tau) by one host scalar mul), open,
      verify, a tampered evaluation rejected, multi_open / multi_verify of
-     three polynomials at two points and a tampered proof rejected; K1 and K2
+     three polynomials at two points and a tampered proof rejected; K2 and K4
      launch in commit, open and multi_open; then the host conversions apart:
      the setup's batch mul and its points' way to the host, and the SRS's
      way to device limbs with and without its affine normalization;
  17. the IPA-PCS over BN254 at n = 2^12 (hash-to-curve basis, commit, open,
      verify, the first round of the basis fold timed on the host,
-     multi-open; K1 and K2 launch in commit and open); 64-bit Bulletproofs
+     multi-open; K2 and K4 launch in commit and open); 64-bit Bulletproofs
      range proofs and the 64-element inner-product argument on both curves
      (prove, verify, a bytes round trip); GKR on tests/test_gkr.py's three
      circuits and a 10-gate, 4-layer circuit on both curves; a Merkle tree of
@@ -97,7 +99,12 @@ Phases, one line each or more:
      card: the sharded G1 and G2 MSMs at 2^16, the four-step NTT at 2^16
      and Groth16 proves at 2^12 constraints (the sharded QAP) and at n = 8
      (the mesh does not divide the split: the replicated QAP), every rank's
-     proofs equal to the one-device proofs.
+     proofs equal to the one-device proofs;
+ 19. K4 (bucket_reduce) against its plain version, bit for bit, at the
+     Groth16 prove's reduction shapes (c = 11, 24 windows; G1 with M = 4
+     MSMs, G2 with M = 1; BN254 and BLS12-381, the top window spread as
+     sort_by_digit spreads it), timed alone and by kernel (windows,
+     Horner) beside its bounds, with the plain version's time.
 
 It exits non-zero on any failure, when no CUDA device is present, and when
 jax or any module of zksnake_tpu was imported. The last four lines are the
@@ -145,27 +152,22 @@ RANGE_BITS = 64
 GKR_WIDE = (10, 4)  # gates a layer, layers
 MERKLE_LEAVES = 4096
 # K3's launches by (field, lanes) in the flagged warm proves of phases 11
-# (Groth16 BLS12-381, 2^17 constraints: 198) and 12 (PlonK BN254, 2^15
-# gates: 347), as those phases count them (they fail if the count differs)
+# (Groth16 BLS12-381, 2^17 constraints: 120) and 12 (PlonK BN254, 2^15
+# gates: 200), as those phases count them (they fail if the count differs):
+# the QAP's or the rounds' scalar-field products; the MSMs' base-field
+# products are K2m's and K4's own
 K3_PATH_WIDTHS = {
     "groth16_bls12_381": {
-        ("BLS12_381_Fr", 131072): 63, ("BLS12_381_Fr", 65536): 51, ("BLS12_381_Fq", 442368): 20,
-        ("BLS12_381_Fq", 589824): 20, ("BLS12_381_Fq", 147456): 12, ("BLS12_381_Fq", 196608): 10,
-        ("BLS12_381_Fr", 262144): 5, ("BLS12_381_Fq", 36864): 3, ("BLS12_381_Fq", 73728): 3,
-        ("BLS12_381_Fq", 55296): 2, ("BLS12_381_Fq", 110592): 2, ("BLS12_381_Fq", 221184): 2,
-        ("BLS12_381_Fq", 294912): 2, ("BLS12_381_Fq", 49152): 1, ("BLS12_381_Fq", 98304): 1,
+        ("BLS12_381_Fr", 131072): 63, ("BLS12_381_Fr", 65536): 51, ("BLS12_381_Fr", 262144): 5,
         ("BLS12_381_Fr", 131074): 1,
     },
     "plonk_bn254": {
-        ("BN254_Fr", 65536): 66, ("BN254_Fq", 147456): 42, ("BN254_Fq", 442368): 40,
-        ("BN254_Fr", 262144): 40, ("BN254_Fr", 131072): 23, ("BN254_Fr", 524288): 21,
-        ("BN254_Fq", 294912): 20, ("BN254_Fr", 393216): 17, ("BN254_Fq", 49152): 11,
-        ("BN254_Fq", 98304): 10, ("BN254_Fr", 32774): 7, ("BN254_Fq", 36864): 6,
-        ("BN254_Fq", 73728): 6, ("BN254_Fr", 32770): 5, ("BN254_Fq", 55296): 4,
-        ("BN254_Fq", 110592): 4, ("BN254_Fq", 221184): 4, ("BN254_Fr", 32768): 4,
-        ("BN254_Fr", 32772): 4, ("BN254_Fr", 32773): 4, ("BN254_Fr", 32769): 3,
-        ("BN254_Fr", 32771): 2, ("BN254_Fr", 98310): 1, ("BN254_Fr", 196608): 1,
-        ("BN254_Fr", 229397): 1, ("BN254_Fr", 491610): 1,
+        ("BN254_Fr", 65536): 66, ("BN254_Fr", 262144): 40, ("BN254_Fr", 131072): 23,
+        ("BN254_Fr", 524288): 21, ("BN254_Fr", 393216): 17, ("BN254_Fr", 32774): 7,
+        ("BN254_Fr", 32770): 5, ("BN254_Fr", 32768): 4, ("BN254_Fr", 32772): 4,
+        ("BN254_Fr", 32773): 4, ("BN254_Fr", 32769): 3, ("BN254_Fr", 32771): 2,
+        ("BN254_Fr", 98310): 1, ("BN254_Fr", 196608): 1, ("BN254_Fr", 229397): 1,
+        ("BN254_Fr", 491610): 1,
     },
 }
 
@@ -175,7 +177,8 @@ K3_PATH_WIDTHS = {
 # x 1.98 GHz, the clock behind the sheet's 67 TFLOP/s float32.
 HBM_BYTES_S = 3.35e12
 INT8_TC_OPS_S = 1979e12
-IMAD_OPS_S = 132 * 64 * 1.98e9
+CLOCK_HZ = 1.98e9
+IMAD_OPS_S = 132 * 64 * CLOCK_HZ
 
 
 def log(msg):
@@ -742,11 +745,11 @@ def phase_msm(ctx):
 def phase_msm_mma(ctx):
     with flag_env("1"):
         row, logn = _msm_2e20(ctx, "ZKSNAKE_MXU_MONTMUL=1")
-    if ctx.device.type == "cuda" and (row["launches"]["mont_mul_mma"] == 0
-                                      or row["launches"]["bucket_accumulate_mma"] == 0
+    if ctx.device.type == "cuda" and (row["launches"]["bucket_accumulate_mma"] == 0
+                                      or row["launches"]["bucket_reduce"] == 0
                                       or row["launches"]["bucket_accumulate"] != 0):
-        raise AssertionError(f"the MSM under ZKSNAKE_MXU_MONTMUL=1 did not run K3 and "
-                             f"K2m alone: {row['launches']}")
+        raise AssertionError(f"the MSM under ZKSNAKE_MXU_MONTMUL=1 did not run K2m and K4, "
+                             f"without K2: {row['launches']}")
     ctx.detail["msm_mma"] = row
     log(f"[6] G1 MSM 2^{logn}, ZKSNAKE_MXU_MONTMUL=1: equals the host oracle; "
         f"{row['seconds']:.4f} s, {row['points_per_s']:.1f} points/s "
@@ -944,9 +947,11 @@ def _groth16_path(ctx, curve, tag):
     return g16, pub, priv, row
 
 
-K_DEFAULT = ("mont_mul", "bucket_accumulate")  # launched without the flag
-K_FLAG = ("mont_mul", "mont_mul_mma", "bucket_accumulate_mma")  # under the flag
+K_DEFAULT = ("mont_mul", "bucket_accumulate", "bucket_reduce")  # launched without the flag
+# under the flag (K1 only where a product is narrower than MXU_MIN_LANES)
+K_FLAG = ("mont_mul_mma", "bucket_accumulate_mma", "bucket_reduce")
 K_FLAG_ONLY = ("mont_mul_mma", "bucket_accumulate_mma")
+K_MSM = ("bucket_accumulate", "bucket_reduce")  # an MSM's own kernels, without the flag
 
 
 def phase_bn254(ctx):
@@ -1414,7 +1419,7 @@ def phase_kzg(ctx):
             raise AssertionError(f"KZG {curve} 2^{logn}: verify accepts the wrong opening "
                                  f"or rejects the right one")
         for path, lc in (("commit", launches_commit), ("open", launches_open)):
-            _require_launches(ctx, f"KZG {curve} {path}", lc, K_DEFAULT)
+            _require_launches(ctx, f"KZG {curve} {path}", lc, K_MSM)
         x1, x2 = rng.randrange(kzg.order), rng.randrange(kzg.order)
         t0 = time.perf_counter()
         query = _multi_query(kzg, polys, x1, x2)
@@ -1426,7 +1431,7 @@ def phase_kzg(ctx):
         if not mok or kzg.multi_verify(vquery, bad):
             raise AssertionError(f"KZG {curve} 2^{logn}: multi_verify accepts a tampered "
                                  f"proof or rejects the right one")
-        _require_launches(ctx, f"KZG {curve} multi_open", launches_mopen, K_DEFAULT)
+        _require_launches(ctx, f"KZG {curve} multi_open", launches_mopen, K_MSM)
         tag = f"kzg_{curve.lower()}"
         for path, lc in (("setup", launches_setup), ("commit", launches_commit),
                          ("open", launches_open), ("multi_open", launches_mopen)):
@@ -1515,7 +1520,7 @@ def phase_commitments(ctx):
         raise AssertionError(f"IPA-PCS 2^{logn}: verify accepts the wrong opening or "
                              f"rejects the right one")
     for path, lc in (("commit", launches_commit), ("open", launches_open)):
-        _require_launches(ctx, f"IPA-PCS {path}", lc, K_DEFAULT)
+        _require_launches(ctx, f"IPA-PCS {path}", lc, K_MSM)
     # the basis fold of open's first round: 2^(logn-1) host scalar muls
     u = rng.randrange(ipa.order)
     half = n // 2
@@ -1884,20 +1889,107 @@ def phase_sharded(ctx):
         f"MSMs equal the host oracle, NTTs equal ntt_device, every rank's proofs (sharded QAP "
         f"at 2^{lg['prove']}, replicated QAP at n = 8) equal the one-device proofs and verify")
 
+
+def phase_k4(ctx):
+    """K4 against its plain version, limb for limb, at the Groth16 prove's
+    two reduction passes (c = 11, W = 24: G1 with M = 4, G2 with M = 1) on
+    both curves, on random canonical coordinates (the formulas are the same
+    arithmetic whether or not they are points); timed beside two bounds:
+    every product of the pass at K1's rate, and Horner's chain: its levels
+    of independent products (a doubling or an add is two, three where 3b
+    is no small integer), one after another, each one CIOS product's
+    cios_imads multiply-adds at one warp's rate (2 clocks a warp
+    instruction: 16 lanes a clock on one scheduler). The windows' and
+    Horner's launches apart are the port's spans msm.reduce.window and
+    .horner (each syncs at its edges)."""
+    import numpy as np
+
+    from zksnake_tpu_torch import metrics
+    from zksnake_tpu_torch.backend import kernels
+    from zksnake_tpu_torch.backend.curve_ops import get_group_spec
+    from zksnake_tpu_torch.backend.msm import _next_pow2
+    from zksnake_tpu_torch.curves import get_curve_module
+
+    torch = ctx.torch
+    c = 11 if not ctx.rehearse else 5
+    rng = np.random.default_rng(0x4B4)
+    rows = []
+    for curve_name in K2_CURVES:
+        for group in (1, 2):
+            gs = get_group_spec(get_curve_module(curve_name, ctx.device)._curve, group)
+            fs, r = gs.fs, gs.curve.r
+            M, L, B2, nbits = 4 if group == 1 else 1, 3 * group, 1 << (c - 1), 256
+            W_ = -(-nbits // c)
+            V_cap = _next_pow2(max((r >> (c * (W_ - 1))) + 2, 2))  # as sort_by_digit
+            S_top = B2 // V_cap if V_cap < B2 else 1
+            if ctx.rehearse:
+                W_ = 3
+            limbs = _random_elems(fs, fs.nl, L * M * W_ * B2, rng).reshape(fs.nl, L, M, W_, B2)
+            buckets = torch.from_numpy(limbs).permute(1, 0, 2, 3, 4).contiguous().to(ctx.device)
+            run = lambda: kernels.bucket_reduce(gs, buckets, c, S_top, V_cap)  # noqa: E731
+            got = run()
+            t0 = time.perf_counter()
+            want = kernels.bucket_reduce_plain(gs, buckets, c, S_top, V_cap)
+            ctx.sync()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            err = int((got.long() - want.long()).abs().max())
+            if err != 0:
+                raise AssertionError(f"K4 {curve_name} G{group} M={M}: kernel != plain "
+                                     f"(max |err| {err})")
+            ms = ctx.time_ms(run, 5)
+            metrics.enable()
+            metrics.reset()
+            for _ in range(5):
+                run()
+            spans = metrics.report()
+            metrics.enable(False)
+            metrics.reset()
+            split = {name: spans[f"msm.reduce.{name}"]["seconds"] / 5 * 1e3
+                     if f"msm.reduce.{name}" in spans else float("nan")
+                     for name in ("window", "horner")}
+            # a level of n lanes is n adds: (c - 1) B2 a window, B2 - V_cap
+            # in the top fold; Horner c W doublings and W adds an MSM
+            small = gs.b3_small() != 0
+            p_add, p_dbl, k = (12 if small else 14), (8 if small else 9), group * 2 - 1
+            adds = M * (W_ * (c - 1) * B2 + (B2 - V_cap if S_top > 1 else 0))
+            nw = fs.nl // 2
+            prods = adds * p_add * k + M * W_ * (c * p_dbl + p_add) * k
+            bms, bby = bound(4 * (buckets.numel() + got.numel()),
+                             [(prods * cios_imads(nw), IMAD_OPS_S)])
+            levels = W_ * (c + 1) * (2 if small else 3)
+            chain_ms = levels * cios_imads(nw) * 2 / CLOCK_HZ * 1e3
+            row = {"curve": curve_name, "group": group, "msms": M, "c": c, "windows": W_,
+                   "buckets": B2, "S_top": S_top, "V_cap": V_cap, "adds": adds,
+                   "products": prods, "max_abs_err": err, "ms": ms,
+                   "window_ms": split["window"], "horner_ms": split["horner"],
+                   "plain_ms": plain_ms, "bound_ms": bms, "bound_by": bby,
+                   "horner_levels": levels, "horner_bound_ms": chain_ms}
+            rows.append(row)
+            log(f"[19] K4 bucket_reduce {curve_name} G{group} M={M} c={c} W={W_} "
+                f"(S_top {S_top}): bit-identical to the plain version; kernel {ms:.3f} ms "
+                f"(windows {row['window_ms']:.3f}, Horner {row['horner_ms']:.3f}), plain "
+                f"{plain_ms:.1f} ms; bounds: products {bms:.4f} ms ({bby}), Horner's chain "
+                f"of {levels} product levels {chain_ms:.4f} ms")
+            del buckets, got, want
+    ctx.detail["k4"] = rows
+    ctx.kernels["bucket_reduce"] = rows[0]
+
+
 PHASES = [phase_build, phase_k1, phase_k3, phase_k2, phase_k2m, phase_msm, phase_msm_mma,
           phase_msm_g2, phase_fixtures, phase_plonk_fixtures, phase_bn254, phase_bls12_381,
           phase_plonk, phase_relayout, phase_g2_block, phase_sumcheck, phase_kzg,
-          phase_commitments, phase_sharded]
+          phase_commitments, phase_sharded, phase_k4]
 
 # the kernel libraries each phase launches: phase 0 builds those of the
 # chosen phases, and K1's always (every wrapper reports a launch error with
 # its error strings)
 _K2_LIBS = ("bucket16", "bucket24")
 _K2M_LIBS = ("bucket_mma16", "bucket_mma24")
-_PROVE_LIBS = ("montmul_mma",) + _K2_LIBS + _K2M_LIBS
+_K4_LIBS = ("bucket_reduce16", "bucket_reduce24")
+_PROVE_LIBS = ("montmul_mma",) + _K2_LIBS + _K2M_LIBS + _K4_LIBS
 PHASE_LIBS = [(), (), ("montmul_mma",), _K2_LIBS, ("montmul_mma",) + _K2_LIBS + _K2M_LIBS,
-              *[_PROVE_LIBS] * 8, ("relayout",), ("g2_block",), (), _K2_LIBS, ("bucket16",),
-              ("bucket16",)]
+              *[_PROVE_LIBS] * 8, ("relayout",), ("g2_block",), (), _K2_LIBS + _K4_LIBS,
+              ("bucket16", "bucket_reduce16"), ("bucket16", "bucket_reduce16"), _K4_LIBS]
 
 # kernel -> (source, the TPU kernel it replaces, the main-path run its
 # launch count is read from)
@@ -1921,6 +2013,9 @@ SOURCES = {
     "transpose_flat": (RELAYOUT_CU, "scripts/bench_sortdma.py:455", "bench_sortdma"),
     "g2_block": ("zksnake_tpu_torch/csrc/g2_block.cu", "scripts/debug_g2_mosaic.py:21",
                  "debug_g2_block"),
+    "bucket_reduce": ("zksnake_tpu_torch/csrc/bucket_reduce.cu",
+                      "none: the JAX package reduces its buckets in plain jnp",
+                      "bls12_381_prove_warm"),
 }
 
 

@@ -6,10 +6,10 @@ the card:
 
     python -m pytest tests/test_torch_kernels_cuda.py -q
 
-K1, K2 and K2m (16- and 24-limb builds) and K3 must match their plain versions limb
-for limb (integer field arithmetic has no tolerance; K2 and K2m their
-chunked plain versions, on overlapping runs too, and K2m K2), and so must
-the relayout
+K1, K2, K2m and K4 (16- and 24-limb builds) and K3 must match their plain
+versions limb for limb (integer field arithmetic has no tolerance; K2 and
+K2m their chunked plain versions, on overlapping runs too, and K2m K2), and
+so must the relayout
 kernels S1-S8 and the G2 probe S9 on ragged edges (a start of n - 1, R not a
 multiple of 4, planes not a multiple of any tile, all-ones bytes); each
 wrapper must count one launch per call, refuse what its kernel does not take,
@@ -200,6 +200,100 @@ def test_bucket_mma_kernel_matches_plain_and_k2(card, curve, group):
     assert torch.equal(got, kernels.bucket_accumulate(gs, pts, starts, lens))
 
 
+def reduce_inputs(curve, group, c, M, W, device, seed):
+    """K4's input: (3|6, nl, M, W, 2^(c - 1)) bucket sums of real points:
+    sums of two generator multiples (projective, Z not 1), a fifth of the
+    lanes the identity, lane b + 1 equal to lane b for every b = 0 mod 4
+    and lane B2 / 2 to lane 0 (the complete add on P + P in the scan and
+    the tree), and window 1 of MSM 0 summing to the identity (lanes 0 and 1
+    hold 2Q and -Q, the rest the identity)."""
+    cm = get_curve_module(curve, device)
+    gs = get_group_spec(cm._curve, group)
+    gen = cm.g1() if group == 1 else cm.g2()
+    rng = np.random.default_rng(seed)
+    base = gs.points_to_device([gen * (i + 1) for i in range(16)], device)
+    a, b = (torch.from_numpy(rng.integers(0, 16, size=30)).to(device) for _ in range(2))
+    Q = gen * 5
+    extra = gs.points_to_device([Q + Q, -Q, type(gen).identity()], device)
+    pool = gs.map(lambda s, e: torch.cat([s, e], dim=1),
+                  gs.add(gs.map(lambda t: t[:, a], base), gs.map(lambda t: t[:, b], base)),
+                  extra)  # 30 sums, then 2Q, -Q, the identity
+    B2 = 1 << (c - 1)
+    idx = rng.integers(0, 30, size=(M, W, B2))
+    idx[rng.random(size=idx.shape) < 0.2] = 32
+    idx[..., 1::4] = idx[..., 0::4]
+    idx[..., B2 // 2] = idx[..., 0]
+    idx[0, 1] = 32
+    idx[0, 1, :2] = [30, 31]
+    idx = torch.from_numpy(idx).to(device)
+    return gs, torch.stack([t[:, idx] for t in gs.leaves(pool)]).contiguous()
+
+
+@pytest.mark.parametrize("curve", ["BN254", "BLS12_381"])
+@pytest.mark.parametrize("group", [1, 2])
+@pytest.mark.parametrize("c", [3, 7, 9, 11, 13])
+@pytest.mark.parametrize("M", [1, 4])
+def test_bucket_reduce_kernel_matches_plain(card, curve, group, c, M):
+    """K4 against its plain version, limb for limb, on three windows of
+    real bucket sums (reduce_inputs): identities, equal neighbours, a
+    window that sums to the identity; with M = 4 the top window spread
+    over S_top = 4 sub-buckets, with M = 1 not spread (S_top = 1)."""
+    gs, buckets = reduce_inputs(curve, group, c, M, 3, card, 100 * c + 10 * M + group)
+    B2 = 1 << (c - 1)
+    S_top, V_cap = (4, B2 // 4) if M == 4 else (1, B2)
+    before = kernels.LAUNCHES["bucket_reduce"]
+    got = kernels.bucket_reduce(gs, buckets, c, S_top, V_cap)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["bucket_reduce"] == before + 1
+    assert got.shape == (3 * group, gs.fs.nl, M)
+    assert torch.equal(got, kernels.bucket_reduce_plain(gs, buckets, c, S_top, V_cap))
+
+
+def test_groth16_prove_on_card_reduces_through_k4(card):
+    """A Groth16 prove on the card reduces its G1 MSMs and its G2 MSM in two
+    K4 passes: two launches, msm.reduce counting reduce_kernel_passes 2 and
+    the plain version's point ops (one a level: the top fold, the suffix
+    scan, the window tree, Horner's doublings and adds) under the children
+    msm.reduce.window and .horner."""
+    from zksnake_tpu_torch import ConstraintSystem, R1CS, Var, metrics
+    from zksnake_tpu_torch.groth16 import Groth16
+
+    inp, out = Var("inp"), Var("out")
+    v = [Var(f"v{i}") for i in range(15)]
+    cs = ConstraintSystem(["inp"], ["out"], BN254_SCALAR_FIELD)
+    cs.add_constraint(v[0] == inp * inp)
+    for i in range(1, 15):
+        cs.add_constraint(v[i] == v[i - 1] * inp)
+    cs.add_constraint(out == v[14])
+    cs.set_public(out)
+    r1cs = R1CS(cs, "BN254")
+    r1cs.compile()
+    pub, priv = r1cs.generate_witness(cs.solve({"inp": 3}))
+    g16 = Groth16(r1cs, "BN254", device=card)
+    g16.setup()
+    before = kernels.LAUNCHES["bucket_reduce"]
+    metrics.enable()
+    metrics.reset()
+    try:
+        proof = g16.prove(pub, priv)
+        rep = metrics.report()
+    finally:
+        metrics.enable(False)
+        metrics.reset()
+    assert g16.verify(proof, pub)
+    assert kernels.LAUNCHES["bucket_reduce"] == before + 2
+    c = tmsm._pick_window(g16._get_device_prover().n)
+    W, B2 = -(-256 // c), 1 << (c - 1)
+    V_cap = tmsm._next_pow2(max((BN254_SCALAR_FIELD >> (c * (W - 1))) + 2, 2))
+    S_top = B2 // V_cap if V_cap < B2 else 1
+    red = rep["msm.reduce"]
+    assert (red["calls"], red["reduce_kernel_passes"]) == (2, 2)
+    assert red["point_ops"] == 2 * (S_top.bit_length() - 1 + 2 * (c - 1) + W * (c + 1))
+    for name in ("msm.reduce.window", "msm.reduce.horner"):
+        assert rep[name]["calls"] == 2 and rep[name]["parent"] == "msm.reduce"
+    assert not {"msm.reduce.top", "msm.reduce.scan", "msm.reduce.tree"} & set(rep)
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(card):
     fs = FieldSpec.get(BN254_MODULUS)
     a = random_elems(fs, 64, 3).to(card)
@@ -220,6 +314,15 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
             fn(gs, pts.long(), runs, runs)
         with pytest.raises(ValueError):
             fn(gs, pts, runs, runs.cpu())
+    buckets = torch.zeros((3, 16, 2, 2, 4), dtype=torch.int32, device=card)
+    with pytest.raises(TypeError):
+        kernels.bucket_reduce(gs, buckets.long(), 3, 1, 4)
+    with pytest.raises(ValueError):
+        kernels.bucket_reduce(gs, buckets.transpose(2, 3), 3, 1, 4)  # not contiguous
+    with pytest.raises(ValueError):
+        kernels.bucket_reduce(gs, buckets[:2].contiguous(), 3, 1, 4)  # G1 takes X, Y, Z
+    with pytest.raises(ValueError):
+        kernels.bucket_reduce(gs, buckets, 4, 1, 8)  # 4 lanes a window, not 2^(c - 1)
 
 
 @pytest.mark.parametrize("group", [1, 2])

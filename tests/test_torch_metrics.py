@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from zksnake_tpu_torch import metrics
+from zksnake_tpu_torch.backend import kernels
 from zksnake_tpu_torch.backend import msm as tmsm
 from zksnake_tpu_torch.backend.curve_ops import get_group_spec
 from zksnake_tpu_torch.curves import get_curve_module
@@ -145,3 +146,49 @@ def test_msm_result_same_with_metrics_on_and_off(msm_runs):
     _, off, on, _ = msm_runs
     for a, b in zip(get_group_spec(CURVE, 1).leaves(off), get_group_spec(CURVE, 1).leaves(on)):
         assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_msm_reduce_on_the_cpu_is_the_plain_version(msm_runs):
+    """On CPU tensors no reduction pass is the kernel's: the plain version's
+    spans, no msm.reduce.window and no reduce_kernel_passes."""
+    _, _, _, rep = msm_runs
+    assert "msm.reduce.window" not in rep
+    assert all("reduce_kernel_passes" not in entry for entry in rep.values())
+
+
+def test_bucket_reduce_on_the_cpu_takes_the_plain_version():
+    """kernels.bucket_reduce on CPU tensors: no launch counted, the plain
+    version's spans and point ops, and the MSMs' sums: window w's buckets
+    S_{w,b} give sum_w 2^(c (W - 1 - w)) sum_b (b + 1) S_{w,b}, the top
+    window's sub-bucket lanes j V_cap + b folded into lane b first."""
+    c, M, W, S_top, V_cap = 3, 2, 2, 2, 2
+    B2 = 1 << (c - 1)
+    gs = get_group_spec(CURVE, 1)
+    g = PORT.g1()
+    pool = [g * (i + 3) for i in range(7)] + [type(g).identity()]
+    idx = np.random.default_rng(5).integers(0, len(pool), size=(M, W, B2))
+    idx[0, 0, 1] = idx[0, 0, 0]  # an add of P + P in the top fold
+    dev = gs.points_to_device(pool, "cpu")
+    buckets = torch.stack([t[:, torch.from_numpy(idx)] for t in gs.leaves(dev)]).contiguous()
+    before = dict(kernels.LAUNCHES)
+    metrics.enable()
+    got = kernels.bucket_reduce(gs, buckets, c, S_top, V_cap)
+    rep = metrics.report()
+    assert kernels.LAUNCHES == before
+    assert sorted(rep) == sorted(REDUCE_CHILDREN)
+    assert {name: rep[name]["point_ops"] for name in REDUCE_CHILDREN} == {
+        "msm.reduce.top": 1, "msm.reduce.scan": c - 1, "msm.reduce.tree": c - 1,
+        "msm.reduce.horner": W * (c + 1)}
+    assert all("reduce_kernel_passes" not in entry for entry in rep.values())
+    for m, point in enumerate(gs.points_from_device(gs.unflatten(list(got)), type(g))):
+        total = type(g).identity()
+        for w in range(W):
+            lanes = [pool[i] for i in idx[m, w]]
+            if w == 0:
+                lanes = [lanes[b] + lanes[b + V_cap] for b in range(V_cap)]
+            window = type(g).identity()
+            for b, S in enumerate(lanes):
+                window = window + S * (b + 1)
+            total = total * (1 << c) + window
+        assert point == total
+

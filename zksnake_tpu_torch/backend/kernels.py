@@ -11,7 +11,10 @@ reduction products run on the matrix unit; K2m `bucket_accumulate_mma`
 (csrc/bucket_mma.cu) replaces the same bucket_accumulate_pallas under
 ZKSNAKE_MXU_MONTMUL=1, where every product of its body is K3's arithmetic
 (on WMMA tiles in shared memory): K2's chunk and fold kernels
-(csrc/bucket_chunks.cuh) on the tensor-core product.
+(csrc/bucket_chunks.cuh) on the tensor-core product. K4 `bucket_reduce`
+(csrc/bucket_reduce.cu) replaces no TPU kernel (the JAX package reduces
+its buckets in plain jnp): it runs an MSM pass's bucket reduction, the
+point ops of its plain version, in two launches.
 
 S1-S8 (csrc/relayout.cu) replace the Pallas kernels of
 scripts/bench_sortdma.py, the relayout probes of the MSM table; their
@@ -40,6 +43,7 @@ import time
 import numpy as np
 import torch
 
+from .. import metrics
 from .limbs import MASK, W
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -55,8 +59,8 @@ NVCC_FLAGS = [
 # then a pairwise tree (scripts/k2_chunk_sweep.py measures other values)
 K2_CHUNK = 8
 K2_FOLD_LANES = 4
-# library -> (source, extra nvcc flags); K2 and K2m are built once per limb
-# count
+# library -> (source, extra nvcc flags); K2, K2m and K4 are built once per
+# limb count
 _SOURCES = {
     "montmul": ("montmul.cu", []),
     "montmul_mma": ("montmul_mma.cu", []),
@@ -64,15 +68,17 @@ _SOURCES = {
     "bucket24": ("bucket.cu", ["-DZK_NL=24"]),
     "bucket_mma16": ("bucket_mma.cu", ["-DZK_NL=16"]),
     "bucket_mma24": ("bucket_mma.cu", ["-DZK_NL=24"]),
+    "bucket_reduce16": ("bucket_reduce.cu", ["-DZK_NL=16"]),
+    "bucket_reduce24": ("bucket_reduce.cu", ["-DZK_NL=24"]),
     "relayout": ("relayout.cu", []),
     "g2_block": ("g2_block.cu", []),
 }
 
 # launches of each kernel since the last reset_launches()
 LAUNCHES = {"mont_mul": 0, "bucket_accumulate": 0, "mont_mul_mma": 0,
-            "bucket_accumulate_mma": 0, "expand_rows": 0, "transpose_tile": 0,
-            "expand_cols": 0, "copy_tile": 0, "transpose_fat": 0, "transpose_mma": 0,
-            "expand_rows_pm": 0, "transpose_flat": 0, "g2_block": 0}
+            "bucket_accumulate_mma": 0, "bucket_reduce": 0, "expand_rows": 0,
+            "transpose_tile": 0, "expand_cols": 0, "copy_tile": 0, "transpose_fat": 0,
+            "transpose_mma": 0, "expand_rows_pm": 0, "transpose_flat": 0, "g2_block": 0}
 
 _LIBS = {}
 _LOCK = threading.Lock()
@@ -82,6 +88,11 @@ _LOCK = threading.Lock()
 _VP, _I, _LL, _U32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint32
 _K2_ARGTYPES = [_VP] * 6 + [_I] * 4 + [_LL, _LL, _VP, _U32, _VP, _VP, _I]
 BUCKET_ARGTYPES = {False: _K2_ARGTYPES + [_VP], True: _K2_ARGTYPES + [_VP, _VP]}
+# K4's two entry points (csrc/bucket_reduce.cu): the field constants and 3b
+# as K2 takes them, then the stream
+_K4_CONSTS = [_VP, _U32, _VP, _VP, _I, _VP]
+REDUCE_ARGTYPES = {"zk_bucket_reduce_windows": [_VP] * 3 + [_I] * 7 + _K4_CONSTS,
+                   "zk_bucket_reduce_horner": [_VP] * 2 + [_I] * 5 + _K4_CONSTS}
 
 
 def reset_launches():
@@ -115,10 +126,14 @@ def _stale(name):
 
 
 def build(names=None):
-    """Compile the stale kernel libraries (in parallel, one nvcc each).
-    Returns {name: seconds}; raises with nvcc's output on failure. nvcc's
-    -Xptxas -v report (registers, spills) lands in _build/<name>.ptxas.txt."""
+    """Compile the stale kernel libraries (in parallel, one nvcc each), K4's
+    with K2's or K2m's of its limb count, since every MSM that runs one runs
+    the other. Returns {name: seconds}; raises with nvcc's output on
+    failure. nvcc's -Xptxas -v report (registers, spills) lands in
+    _build/<name>.ptxas.txt."""
     names = list(names or _SOURCES)
+    k4 = {f"bucket_reduce{n[-2:]}" for n in names if n.startswith("bucket")}
+    names += sorted(k4 - set(names))
     todo = [n for n in names if _stale(n)]
     if not todo:
         return {}
@@ -214,6 +229,10 @@ def _lib(name):
             elif name == "g2_block":
                 lib.zk_g2_block.argtypes = [i, vp, i, vp, i, ll, i, vp, u32, vp, vp, vp]
                 lib.zk_g2_block.restype = i
+            elif name.startswith("bucket_reduce"):
+                for fn, argtypes in REDUCE_ARGTYPES.items():
+                    getattr(lib, fn).argtypes = argtypes
+                    getattr(lib, fn).restype = i
             else:
                 mma = name.startswith("bucket_mma")
                 fn = lib.zk_bucket_accumulate_mma if mma else lib.zk_bucket_accumulate
@@ -614,6 +633,110 @@ def bucket_accumulate_mma(gs, pts, starts, lens):
     if dev.type != "cuda":
         raise ValueError(f"bucket_accumulate_mma: unsupported device {dev}")
     return _bucket_launch(gs, pts, starts, lens, mma=True)
+
+
+# -------------------------------------------------------------------- K4 --
+
+
+def bucket_reduce_plain(gs, buckets, c, S_top, V_cap):
+    """Plain version of K4 on any device: the bucket sums of M MSMs
+    (3|6, nl, M, W, B2), high window first (K2's outputs stacked), -> the
+    M MSMs (3|6, nl, M): collapse the top window's sub-buckets, the weighted
+    sum of every window by suffix scans, then Horner across windows. Every
+    step runs on all M MSMs at once, so M MSMs take the launches of one."""
+    from .msm import _tree_reduce
+
+    buckets = gs.unflatten(list(buckets))
+    B2 = 1 << (c - 1)
+    lead = gs.leaves(buckets)[0]
+    dev = lead.device
+    M, Wn = lead.shape[1], lead.shape[2]
+    with metrics.phase("msm.reduce.top"):
+        if S_top > 1:
+            # lane j*V_cap + (b-1) holds a partial sum of top bucket b: fold
+            # the S_top slots, then pad with identity back to B2 lanes
+            top = gs.map(
+                lambda t: t[:, :, 0].reshape(t.shape[0], M, S_top, V_cap).transpose(2, 3),
+                buckets,
+            )
+            top = _tree_reduce(gs, top, S_top)  # (nl, M, V_cap) leaves
+            ident = gs.identity((M, B2 - V_cap), dev)
+            padded = gs.map(lambda a, b: torch.cat([a, b], dim=-1), top, ident)
+            buckets = gs.map(
+                lambda t, pw: torch.cat([pw[:, :, None], t[:, :, 1:]], dim=2), buckets, padded
+            )
+
+    # sum_b (b+1) S_b = sum_{b>=0} T_b with T_b = sum_{j>=b} S_j: suffix sums
+    # by a log-depth roll scan on the bucket axis, all windows at once
+    with metrics.phase("msm.reduce.scan"):
+        iota_b = torch.arange(B2, device=dev)
+        T = buckets
+        for i in range(c - 1):
+            sh = 1 << i
+            Q = gs.map(lambda t: torch.roll(t, -sh, dims=-1), T)
+            T = gs.select(iota_b < B2 - sh, gs.add(T, Q), T)
+    with metrics.phase("msm.reduce.tree"):
+        wsums = _tree_reduce(gs, T, B2)  # (nl, M, W) leaves
+
+    # Horner across windows (high window first): R <- R * 2^c + w_j
+    with metrics.phase("msm.reduce.horner"):
+        Rpt = gs.identity((M,), dev)
+        for j in range(Wn):
+            for _ in range(c):
+                Rpt = gs.double(Rpt)
+            Rpt = gs.add(Rpt, gs.map(lambda t: t[:, :, j], wsums))
+    return torch.stack(gs.leaves(Rpt))
+
+
+def bucket_reduce(gs, buckets, c, S_top, V_cap):
+    """K4 on CUDA (two launches: the windows, then Horner), its plain
+    version on the CPU. buckets: (3|6, nl, M, W, 2^(c - 1)) int32 bucket
+    sums, high window first; S_top, V_cap: the top window's spreading
+    (msm.sort_by_digit). Returns the M projective results (3|6, nl, M).
+
+    On the card the pass runs inside the spans msm.reduce.window (the top
+    fold, the suffix scan and the window tree) and msm.reduce.horner, and
+    counts reduce_kernel_passes and, by the plain version's rule (one a
+    level of point ops), the same point_ops as the plain version's spans."""
+    dev = buckets.device
+    if dev.type == "cpu":
+        return bucket_reduce_plain(gs, buckets, c, S_top, V_cap)
+    if dev.type != "cuda":
+        raise ValueError(f"bucket_reduce: unsupported device {dev}")
+    fs = gs.fs
+    nl = fs.nl
+    L = 3 * gs.group
+    B2 = 1 << (c - 1)
+    _require(buckets, "buckets")
+    if buckets.ndim != 5 or buckets.shape[:2] != (L, nl) or buckets.shape[4] != B2 \
+            or buckets.shape[2] < 1 or buckets.shape[3] < 1:
+        raise ValueError(f"bucket_reduce: buckets shape {tuple(buckets.shape)}, expected "
+                         f"({L}, {nl}, M, W, {B2})")
+    if S_top > 1 and S_top * V_cap != B2:
+        raise ValueError(f"bucket_reduce: {S_top} sub-buckets of {V_cap} lanes in {B2}")
+    _, _, M, Wn, _ = buckets.shape
+    pw = L * nl // 2  # 32-bit words a point
+    win = torch.empty(M * Wn * pw * B2, dtype=torch.int32, device=dev)
+    sums = torch.empty(pw * M * Wn, dtype=torch.int32, device=dev)
+    out = torch.empty((L, nl, M), dtype=torch.int32, device=dev)
+    consts = [ctypes.addressof(fs.words("p")), fs.pinv32, ctypes.addressof(fs.words("one")),
+              ctypes.addressof(gs.b3_words()), gs.b3_small()]
+    lib = _lib(f"bucket_reduce{nl}")
+    LAUNCHES["bucket_reduce"] += 1
+    metrics.count("reduce_kernel_passes")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        with metrics.phase("msm.reduce.window"):
+            metrics.count("point_ops", S_top.bit_length() - 1 + 2 * (c - 1))
+            _check(lib.zk_bucket_reduce_windows(
+                buckets.data_ptr(), win.data_ptr(), sums.data_ptr(), nl, gs.group, M, Wn, B2,
+                S_top, V_cap, *consts, stream), "bucket_reduce")
+        with metrics.phase("msm.reduce.horner"):
+            metrics.count("point_ops", Wn * (c + 1))
+            _check(lib.zk_bucket_reduce_horner(
+                sums.data_ptr(), out.data_ptr(), nl, gs.group, M, Wn, c, *consts, stream),
+                "bucket_reduce")
+    return out
 
 
 # -------------------------------------------------------------------- S9 --

@@ -15,12 +15,14 @@ Pippenger of the JAX package:
   reductions on the tensor cores (the JAX package swaps its bucket
   kernel's body under the flag);
 - the suffix-scan weighted reduction over every window at once, then a
-  Horner pass across windows.
+  Horner pass across windows: kernel K4 (kernels.bucket_reduce), one pass
+  for every MSM of a call in two launches.
 
 With metrics on (zksnake_tpu_torch.metrics), each stage is a span:
 msm.sort, msm.accumulate and msm.reduce, the last with the children
-msm.reduce.top, .scan, .tree and .horner; curve_ops counts the point ops
-inside them.
+msm.reduce.window and .horner on the card (K4, which also counts
+reduce_kernel_passes), or .top, .scan, .tree and .horner on the CPU (its
+plain version); both count the reduction's point ops, one a level.
 
 The JAX package's round table, its gather, the static round budget, the
 remainder loop and the lane caps fitted Mosaic's fixed grid and are not
@@ -176,59 +178,12 @@ def sort_by_digit(gs, P, slimbs, c):
     return pts, starts, lens, S_top, V_cap
 
 
-def reduce_buckets(gs, buckets, c, S_top, V_cap):
-    """Bucket sums (leaves (nl, M, W, B2): M independent MSMs, high window
-    first) -> the M MSMs, leaves (nl, M): collapse the top window's
-    sub-buckets, the weighted sum of every window by suffix scans, then
-    Horner across windows. Every step runs on all M MSMs at once, so M
-    MSMs take the launches of one."""
-    B2 = 1 << (c - 1)
-    lead = gs.leaves(buckets)[0]
-    dev = lead.device
-    M, Wn = lead.shape[1], lead.shape[2]
-    with metrics.phase("msm.reduce.top"):
-        if S_top > 1:
-            # lane j*V_cap + (b-1) holds a partial sum of top bucket b: fold
-            # the S_top slots, then pad with identity back to B2 lanes
-            top = gs.map(
-                lambda t: t[:, :, 0].reshape(t.shape[0], M, S_top, V_cap).transpose(2, 3),
-                buckets,
-            )
-            top = _tree_reduce(gs, top, S_top)  # (nl, M, V_cap) leaves
-            ident = gs.identity((M, B2 - V_cap), dev)
-            padded = gs.map(lambda a, b: torch.cat([a, b], dim=-1), top, ident)
-            buckets = gs.map(
-                lambda t, pw: torch.cat([pw[:, :, None], t[:, :, 1:]], dim=2), buckets, padded
-            )
-
-    # sum_b (b+1) S_b = sum_{b>=0} T_b with T_b = sum_{j>=b} S_j: suffix sums
-    # by a log-depth roll scan on the bucket axis, all windows at once
-    with metrics.phase("msm.reduce.scan"):
-        iota_b = torch.arange(B2, device=dev)
-        T = buckets
-        for i in range(c - 1):
-            sh = 1 << i
-            Q = gs.map(lambda t: torch.roll(t, -sh, dims=-1), T)
-            T = gs.select(iota_b < B2 - sh, gs.add(T, Q), T)
-    with metrics.phase("msm.reduce.tree"):
-        wsums = _tree_reduce(gs, T, B2)  # (nl, M, W) leaves
-
-    # Horner across windows (high window first): R <- R * 2^c + w_j
-    with metrics.phase("msm.reduce.horner"):
-        Rpt = gs.identity((M,), dev)
-        for j in range(Wn):
-            for _ in range(c):
-                Rpt = gs.double(Rpt)
-            Rpt = gs.add(Rpt, gs.map(lambda t: t[:, :, j], wsums))
-    return Rpt
-
-
 def msm_pippenger_many(gs, jobs, c):
     """M MSMs of one group with one window size c. jobs: [(P, slimbs)],
     P projective coords (nl, n_i) with Z in {0, 1}, slimbs (SL, n_i) raw
     16-bit scalar limbs. Each job is sorted and bucket-accumulated (K2, or
-    K2m under ZKSNAKE_MXU_MONTMUL=1) on its own; the reduction runs once
-    over all of them. Returns the projective results, leaves (nl, M)."""
+    K2m under ZKSNAKE_MXU_MONTMUL=1) on its own; the reduction (K4) runs
+    once over all of them. Returns the projective results, leaves (nl, M)."""
     mma = config.mxu_montmul()
     accumulate = kernels.bucket_accumulate_mma if mma else kernels.bucket_accumulate
     sums = []
@@ -240,7 +195,7 @@ def msm_pippenger_many(gs, jobs, c):
         del pts
     buckets = torch.stack(sums, dim=2)  # (3|6, nl, M, W, B2)
     with metrics.phase("msm.reduce"):
-        return reduce_buckets(gs, gs.unflatten(list(buckets)), c, S_top, V_cap)
+        return gs.unflatten(list(kernels.bucket_reduce(gs, buckets, c, S_top, V_cap)))
 
 
 def msm_pippenger(gs, P, slimbs, c=13):

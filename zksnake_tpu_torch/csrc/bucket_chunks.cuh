@@ -360,14 +360,6 @@ int launch_group(const int32_t* pts, const int32_t* starts, const int32_t* lens,
   return (int)cudaGetLastError();
 }
 
-// 3b of each group as a small integer where it is one (field.cuh SmallB3),
-// else 0 (a product with 3b): BN254 (NW = 8) 3b = 9, and 3b' = 3 / (9 + u)
-// is none; BLS12-381 (NW = 12) 3b = 12 and 3b' = 12 + 12 u.
-template <int NW>
-struct SmallB3Of {
-  static constexpr int G1 = NW == 12 ? 12 : 9, G2 = NW == 12 ? 12 : 0;
-};
-
 // K2's and K2m's C interface behind the entry points: p, one: NW words;
 // b3: NW words (G1) or 2 NW (G2: real part then u part), all Montgomery
 // form except p; b3k: 3b as a small integer (GroupSpec.b3_small), which

@@ -1,5 +1,6 @@
 // Montgomery field and curve arithmetic shared by the montmul (K1),
-// bucket (K2), montmul_mma (K3) and bucket_mma (K2m) kernels.
+// bucket (K2), montmul_mma (K3), bucket_mma (K2m) and bucket_reduce (K4)
+// kernels.
 //
 // Device tensors hold 16-bit limbs in int32 lanes, limbs-first (nl, N), as
 // zksnake_tpu.backend.field does. Inside a thread two limbs are paired into
@@ -217,6 +218,14 @@ __device__ __forceinline__ Fp2<NW> fmul_with(const SmallB3<K>&, const Fp2<NW>& x
   r.b = fmul_small<K>(fadd(x.a, x.b, P), P);
   return r;
 }
+
+// 3b of each group as a small integer where it is one (SmallB3), else 0 (a
+// product with 3b): BN254 (NW = 8) 3b = 9, and 3b' = 3 / (9 + u) is none;
+// BLS12-381 (NW = 12) 3b = 12 and 3b' = 12 + 12 u.
+template <int NW>
+struct SmallB3Of {
+  static constexpr int G1 = NW == 12 ? 12 : 9, G2 = NW == 12 ? 12 : 0;
+};
 
 // ------------------------------------------------- limb-plane loads ------
 
