@@ -103,8 +103,10 @@ Phases, one line each or more:
  19. K4 (bucket_reduce) against its plain version, bit for bit, at the
      Groth16 prove's reduction shapes (c = 11, 24 windows; G1 with M = 4
      MSMs, G2 with M = 1; BN254 and BLS12-381, the top window spread as
-     sort_by_digit spreads it), timed alone and by kernel (windows,
-     Horner) beside its bounds, with the plain version's time.
+     sort_by_digit spreads it) and at an EIP-7594 request's fixed-base pass
+     (BLS12-381 G1, c = fixed_base_window(4096, 256), one window, 774 MSMs,
+     no top-window fold), timed alone and by kernel (windows, Horner)
+     beside its bounds, with the plain version's time.
 
 It exits non-zero on any failure, when no CUDA device is present, and when
 jax or any module of zksnake_tpu was imported. The last four lines are the
@@ -1893,12 +1895,15 @@ def phase_sharded(ctx):
 def phase_k4(ctx):
     """K4 against its plain version, limb for limb, at the Groth16 prove's
     two reduction passes (c = 11, W = 24: G1 with M = 4, G2 with M = 1) on
-    both curves, on random canonical coordinates (the formulas are the same
-    arithmetic whether or not they are points); timed beside two bounds:
-    every product of the pass at K1's rate, and Horner's chain: its levels
-    of independent products (a doubling or an add is two, three where 3b
-    is no small integer), one after another, each one CIOS product's
-    cios_imads multiply-adds at one warp's rate (2 clocks a warp
+    both curves, and at the fixed-base pass of an EIP-7594 request of 6
+    blobs (BLS12-381 G1, c = fixed_base_window(4096, 256), W = 1, M = 774
+    MSMs, S_top = 1, V_cap = B2: no top-window fold, and the one-block
+    branch of the window kernel), on random canonical coordinates (the
+    formulas are the same arithmetic whether or not they are points); timed
+    beside two bounds: every product of the pass at K1's rate, and Horner's
+    chain: its levels of independent products (a doubling or an add is two,
+    three where 3b is no small integer), one after another, each one CIOS
+    product's cios_imads multiply-adds at one warp's rate (2 clocks a warp
     instruction: 16 lanes a clock on one scheduler). The windows' and
     Horner's launches apart are the port's spans msm.reduce.window and
     .horner (each syncs at its edges)."""
@@ -1907,70 +1912,78 @@ def phase_k4(ctx):
     from zksnake_tpu_torch import metrics
     from zksnake_tpu_torch.backend import kernels
     from zksnake_tpu_torch.backend.curve_ops import get_group_spec
-    from zksnake_tpu_torch.backend.msm import _next_pow2
+    from zksnake_tpu_torch.backend.msm import _next_pow2, fixed_base_window
     from zksnake_tpu_torch.curves import get_curve_module
 
     torch = ctx.torch
-    c = 11 if not ctx.rehearse else 5
+    nbits = 256
     rng = np.random.default_rng(0x4B4)
+    # (pass, curve, group, c, M, W, fixed-base): W None is the scalar's
+    # windows at c, with the top window spread as sort_by_digit spreads it
+    passes = [("groth16", curve_name, group, 11 if not ctx.rehearse else 5,
+               4 if group == 1 else 1, None if not ctx.rehearse else 3, False)
+              for curve_name in K2_CURVES for group in (1, 2)]
+    passes.append(("eip7594", "BLS12_381", 1,
+                   fixed_base_window(4096, nbits) if not ctx.rehearse else 5,
+                   6 * 129 if not ctx.rehearse else 6, 1, True))
     rows = []
-    for curve_name in K2_CURVES:
-        for group in (1, 2):
-            gs = get_group_spec(get_curve_module(curve_name, ctx.device)._curve, group)
-            fs, r = gs.fs, gs.curve.r
-            M, L, B2, nbits = 4 if group == 1 else 1, 3 * group, 1 << (c - 1), 256
-            W_ = -(-nbits // c)
-            V_cap = _next_pow2(max((r >> (c * (W_ - 1))) + 2, 2))  # as sort_by_digit
+    for pass_name, curve_name, group, c, M, W_, fixed in passes:
+        gs = get_group_spec(get_curve_module(curve_name, ctx.device)._curve, group)
+        fs, r = gs.fs, gs.curve.r
+        L, B2 = 3 * group, 1 << (c - 1)
+        if fixed:
+            S_top, V_cap = 1, B2  # as msm_pippenger_many's fixed-base pass
+        else:
+            V_cap = _next_pow2(max((r >> (c * (-(-nbits // c) - 1))) + 2, 2))
             S_top = B2 // V_cap if V_cap < B2 else 1
-            if ctx.rehearse:
-                W_ = 3
-            limbs = _random_elems(fs, fs.nl, L * M * W_ * B2, rng).reshape(fs.nl, L, M, W_, B2)
-            buckets = torch.from_numpy(limbs).permute(1, 0, 2, 3, 4).contiguous().to(ctx.device)
-            run = lambda: kernels.bucket_reduce(gs, buckets, c, S_top, V_cap)  # noqa: E731
-            got = run()
-            t0 = time.perf_counter()
-            want = kernels.bucket_reduce_plain(gs, buckets, c, S_top, V_cap)
-            ctx.sync()
-            plain_ms = (time.perf_counter() - t0) * 1e3
-            err = int((got.long() - want.long()).abs().max())
-            if err != 0:
-                raise AssertionError(f"K4 {curve_name} G{group} M={M}: kernel != plain "
-                                     f"(max |err| {err})")
-            ms = ctx.time_ms(run, 5)
-            metrics.enable()
-            metrics.reset()
-            for _ in range(5):
-                run()
-            spans = metrics.report()
-            metrics.enable(False)
-            metrics.reset()
-            split = {name: spans[f"msm.reduce.{name}"]["seconds"] / 5 * 1e3
-                     if f"msm.reduce.{name}" in spans else float("nan")
-                     for name in ("window", "horner")}
-            # a level of n lanes is n adds: (c - 1) B2 a window, B2 - V_cap
-            # in the top fold; Horner c W doublings and W adds an MSM
-            small = gs.b3_small() != 0
-            p_add, p_dbl, k = (12 if small else 14), (8 if small else 9), group * 2 - 1
-            adds = M * (W_ * (c - 1) * B2 + (B2 - V_cap if S_top > 1 else 0))
-            nw = fs.nl // 2
-            prods = adds * p_add * k + M * W_ * (c * p_dbl + p_add) * k
-            bms, bby = bound(4 * (buckets.numel() + got.numel()),
-                             [(prods * cios_imads(nw), IMAD_OPS_S)])
-            levels = W_ * (c + 1) * (2 if small else 3)
-            chain_ms = levels * cios_imads(nw) * 2 / CLOCK_HZ * 1e3
-            row = {"curve": curve_name, "group": group, "msms": M, "c": c, "windows": W_,
-                   "buckets": B2, "S_top": S_top, "V_cap": V_cap, "adds": adds,
-                   "products": prods, "max_abs_err": err, "ms": ms,
-                   "window_ms": split["window"], "horner_ms": split["horner"],
-                   "plain_ms": plain_ms, "bound_ms": bms, "bound_by": bby,
-                   "horner_levels": levels, "horner_bound_ms": chain_ms}
-            rows.append(row)
-            log(f"[19] K4 bucket_reduce {curve_name} G{group} M={M} c={c} W={W_} "
-                f"(S_top {S_top}): bit-identical to the plain version; kernel {ms:.3f} ms "
-                f"(windows {row['window_ms']:.3f}, Horner {row['horner_ms']:.3f}), plain "
-                f"{plain_ms:.1f} ms; bounds: products {bms:.4f} ms ({bby}), Horner's chain "
-                f"of {levels} product levels {chain_ms:.4f} ms")
-            del buckets, got, want
+            W_ = W_ or -(-nbits // c)
+        limbs = _random_elems(fs, fs.nl, L * M * W_ * B2, rng).reshape(fs.nl, L, M, W_, B2)
+        buckets = torch.from_numpy(limbs).permute(1, 0, 2, 3, 4).contiguous().to(ctx.device)
+        run = lambda: kernels.bucket_reduce(gs, buckets, c, S_top, V_cap)  # noqa: E731
+        got = run()
+        t0 = time.perf_counter()
+        want = kernels.bucket_reduce_plain(gs, buckets, c, S_top, V_cap)
+        ctx.sync()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = int((got.long() - want.long()).abs().max())
+        if err != 0:
+            raise AssertionError(f"K4 {pass_name} {curve_name} G{group} M={M}: kernel != "
+                                 f"plain (max |err| {err})")
+        ms = ctx.time_ms(run, 5)
+        metrics.enable()
+        metrics.reset()
+        for _ in range(5):
+            run()
+        spans = metrics.report()
+        metrics.enable(False)
+        metrics.reset()
+        split = {name: spans[f"msm.reduce.{name}"]["seconds"] / 5 * 1e3
+                 if f"msm.reduce.{name}" in spans else float("nan")
+                 for name in ("window", "horner")}
+        # a level of n lanes is n adds: (c - 1) B2 a window, B2 - V_cap
+        # in the top fold; Horner c W doublings and W adds an MSM
+        small = gs.b3_small() != 0
+        p_add, p_dbl, k = (12 if small else 14), (8 if small else 9), group * 2 - 1
+        adds = M * (W_ * (c - 1) * B2 + (B2 - V_cap if S_top > 1 else 0))
+        nw = fs.nl // 2
+        prods = adds * p_add * k + M * W_ * (c * p_dbl + p_add) * k
+        bms, bby = bound(4 * (buckets.numel() + got.numel()),
+                         [(prods * cios_imads(nw), IMAD_OPS_S)])
+        levels = W_ * (c + 1) * (2 if small else 3)
+        chain_ms = levels * cios_imads(nw) * 2 / CLOCK_HZ * 1e3
+        row = {"pass": pass_name, "curve": curve_name, "group": group, "msms": M, "c": c,
+               "windows": W_, "buckets": B2, "S_top": S_top, "V_cap": V_cap, "adds": adds,
+               "products": prods, "max_abs_err": err, "ms": ms,
+               "window_ms": split["window"], "horner_ms": split["horner"],
+               "plain_ms": plain_ms, "bound_ms": bms, "bound_by": bby,
+               "horner_levels": levels, "horner_bound_ms": chain_ms}
+        rows.append(row)
+        log(f"[19] K4 bucket_reduce {pass_name} {curve_name} G{group} M={M} c={c} W={W_} "
+            f"(S_top {S_top}): bit-identical to the plain version; kernel {ms:.3f} ms "
+            f"(windows {row['window_ms']:.3f}, Horner {row['horner_ms']:.3f}), plain "
+            f"{plain_ms:.1f} ms; bounds: products {bms:.4f} ms ({bby}), Horner's chain "
+            f"of {levels} product levels {chain_ms:.4f} ms")
+        del buckets, got, want
     ctx.detail["k4"] = rows
     ctx.kernels["bucket_reduce"] = rows[0]
 

@@ -297,8 +297,9 @@ def test_groth16_prove_on_card_reduces_through_k4(card):
 def test_eip7594_request_on_card_equals_the_reference(card):
     """One full-size EIP-7594 request on the card (6 blobs of 4096, cells
     of 64), through the benchmark's adapter: every commitment, cell and
-    cell proof equal to the plain reference's, its 774 MSMs in one K4 pass,
-    3,121,152 points in all."""
+    cell proof equal to the plain reference's, its 774 MSMs in one K4 pass
+    of one window each (the SRS's fixed-base table), 3,121,152 points in
+    all."""
     from portbench import harness
     from portbench.protocols import kzg_cells
     from zksnake_tpu_torch import metrics
@@ -322,8 +323,37 @@ def test_eip7594_request_on_card_equals_the_reference(card):
         proto.close()
     msm = rep["kzg.cells.msm"]
     assert (msm["reduce_kernel_passes"], msm["msm_points"]) == (1, 6 * (4096 + 128 * 4032))
+    assert (msm["msm_windows"], msm["msm_fixed_points"]) == (774, msm["msm_points"])
     got = harness.check(proto, None, [(0, 1.0, out)], seed)
     assert got == {"checked": 1, "mismatched": 0, "wrong": []}
+
+
+def test_fixed_base_msm_on_card_equals_the_plain_path(card):
+    """Three BLS12-381 G1 MSMs over the first 4,032 bases of a 4,096-base
+    fixed-base table, on the card at the path's own window size, equal
+    as points to the plain path's over the same points (an identity base
+    among them; scalars 0, 1, r - 1)."""
+    cm = get_curve_module("BLS12_381", card)
+    gs = get_group_spec(cm._curve, 1)
+    g = cm.g1()
+    points, P, step = [], g * 5, g * 977
+    for _ in range(4096):
+        points.append(P)
+        P = P + step
+    points[10] = type(g).identity()
+    bases = gs.points_to_device(points, card)
+    r = cm._curve.r
+    table = tmsm.fixed_base_table(gs, bases)
+    assert (table.c, table.W) == (11, 24)
+    rng = random.Random(41)
+    scalars = [[rng.randrange(r) for _ in range(4032)] for _ in range(3)]
+    for s in scalars:
+        s[:3] = [0, 1, r - 1]
+    slimbs = [tmsm.scalars_to_device(s, r, card) for s in scalars]
+    got = tmsm.msm_pippenger_many(gs, [(table.prefix(4032), s) for s in slimbs])
+    head = gs.map(lambda t: t[:, :4032], bases)
+    want = tmsm.msm_pippenger_many(gs, [(head, s) for s in slimbs], tmsm._pick_window(4032))
+    assert gs.points_from_device(got, type(g)) == gs.points_from_device(want, type(g))
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(card):

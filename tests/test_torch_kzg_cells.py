@@ -63,6 +63,9 @@ def test_spans_and_msm_points(proved):
         assert rep[span]["calls"] == 1
     # per blob: the commitment over 16 points, 8 proofs over 16 - 4
     assert rep["kzg.cells.msm"]["msm_points"] == 2 * (16 + 8 * 12)
+    # every MSM over the SRS's fixed-base table: one window each
+    assert rep["kzg.cells.msm"]["msm_windows"] == 2 * 9
+    assert rep["kzg.cells.msm"]["msm_fixed_points"] == rep["kzg.cells.msm"]["msm_points"]
     assert rep["msm.reduce"]["calls"] == 1  # every MSM of the call in one pass
 
 

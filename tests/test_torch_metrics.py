@@ -1,6 +1,7 @@
 """The port's metrics (zksnake_tpu_torch.metrics): nested spans with self
 time and inclusive counters, no-ops when disabled, and the MSM's spans and
-point-op counter on a CPU MSM (the kernels' plain versions)."""
+counters on a CPU MSM (the kernels' plain versions); the benchmark's reader
+of the MSM's window counter."""
 
 import time
 
@@ -154,6 +155,51 @@ def test_msm_reduce_on_the_cpu_is_the_plain_version(msm_runs):
     _, _, _, rep = msm_runs
     assert "msm.reduce.window" not in rep
     assert all("reduce_kernel_passes" not in entry for entry in rep.values())
+
+
+def test_msm_over_point_tensors_counts_every_window_and_no_fixed_points():
+    """A call over point tensors: msm_windows is the sum over its jobs of W
+    (in msm.reduce and every span around it), msm_fixed_points 0."""
+    gs = get_group_spec(CURVE, 1)
+    jobs = [_msm_jobs(gs, 16, 1), _msm_jobs(gs, 16, 2), _msm_jobs(gs, 8, 3)]
+    metrics.enable()
+    with metrics.phase("caller"):
+        tmsm.msm_pippenger_many(gs, jobs, 5)
+    rep = metrics.report()
+    windows = 3 * -(-256 // 5)
+    assert rep["caller"]["msm_windows"] == rep["msm.reduce"]["msm_windows"] == windows
+    assert (rep["caller"]["msm_points"], rep["caller"]["msm_fixed_points"]) == (40, 0)
+
+
+def test_cells_msm_windows_reader_reads_the_counter_in_the_msm_spans():
+    """portbench's cells_msm_windows: msm_windows in kzg.cells.msm a span
+    proof; nothing where the program has no such counter or no proofs."""
+    from portbench import harness
+    from portbench.trace import Trace
+
+    def read(proofs):
+        t = Trace()
+        t.proofs = proofs
+        return harness.module("layer_metrics", "cells_msm_windows").read(t)
+
+    metrics.enable()
+    for _ in range(2):  # two span proofs of one call each
+        with metrics.phase("kzg.cells.msm"):
+            metrics.count("msm_points", 99)
+            with metrics.phase("msm.reduce"):
+                metrics.count("msm_windows", 774)
+    with metrics.phase("groth16.prove.msm"):
+        with metrics.phase("msm.reduce"):
+            metrics.count("msm_windows", 120)  # outside the cells' spans
+    metrics.enable(False)
+    assert read(2) == 774
+    assert read(0) is None
+    metrics.reset()
+    metrics.enable()
+    with metrics.phase("kzg.cells.msm"):
+        metrics.count("msm_points", 99)  # a parent that counts no windows
+    metrics.enable(False)
+    assert read(1) is None
 
 
 def test_bucket_reduce_on_the_cpu_takes_the_plain_version():

@@ -13,6 +13,9 @@
   results are compared as compressed bytes.
 - fixed-base and per-lane batch scalar multiplication against the JAX
   package's host g * s on the same scalars, compared as compressed bytes.
+- the fixed-base MSM path (a FixedBaseTable of shifted bases, one window
+  an MSM) against the plain path and the host oracle, as points; the
+  table's rows against host doublings; the rule for its window size.
 
 Everything runs on device="cpu" (the kernels' plain versions).
 """
@@ -26,10 +29,11 @@ import torch
 
 from zksnake_tpu.backend.curve_ops import get_group_spec as jax_group
 from zksnake_tpu.backend.dispatch import _host_msm
-from zksnake_tpu.curves import ec_bn254
+from zksnake_tpu.curves import ec_bls12_381, ec_bn254
 from zksnake_tpu_torch.backend import kernels
 from zksnake_tpu_torch.backend import msm as tmsm
 from zksnake_tpu_torch.backend.curve_ops import get_group_spec as torch_group
+from zksnake_tpu_torch.backend.field import FieldSpec
 from zksnake_tpu_torch.curves import get_curve_module
 from zksnake_tpu_torch.ecc import EllipticCurve
 
@@ -263,3 +267,139 @@ def test_msms_over_the_same_points_are_sorted_in_groups(monkeypatch):
         alone = tmsm.msm_pippenger_many(gs, [(Pj, s)], c)
         for a, b in zip(gs.leaves(got), gs.leaves(alone)):
             assert torch.equal(a[:, m], b[:, 0])
+
+
+# ---- the fixed-base path ----
+
+JAX_MODULES = {"BN254": ec_bn254, "BLS12_381": ec_bls12_381}
+
+
+def fixed_case(curve, group, n):
+    """The port's group spec and n bases k0 G, (k0 + 13) G, ... (lane 3 the
+    identity), made by the port's and by the JAX package's curve module."""
+    port = get_curve_module(curve, "cpu")
+    gs = torch_group(port._curve, group)
+    return (gs, chain(gen_of(port, group), n, 13, identities={3}),
+            chain(gen_of(JAX_MODULES[curve], group), n, 13, identities={3}))
+
+
+def table_rows(gs, table, y, cls):
+    """The table's points with Y (y = 0) or -Y (y = 1), host points by row."""
+    nl, W, N = gs.fs.nl, table.W, table.N
+    X = gs.cmap(lambda t: t.reshape(nl, W * N), table.x)
+    Y = gs.cmap(lambda t: t[:, y].reshape(nl, W * N), table.y2)
+    one = torch.from_numpy(gs.fs.one_mont.astype(np.int32))[:, None].expand(nl, W * N)
+    Z1 = torch.where(table.inf.reshape(1, -1), 0, one)
+    Z = Z1 if gs.group == 1 else (Z1, torch.zeros_like(Z1))
+    pts = gs.points_from_device((X, Y, Z), cls)
+    return [pts[w * N:(w + 1) * N] for w in range(W)]
+
+
+def with_window(monkeypatch, c):
+    """Tables made from here on take window size c."""
+    monkeypatch.setattr(tmsm, "fixed_base_window", lambda n, nbits: c)
+
+
+@pytest.mark.parametrize("curve", ["BN254", "BLS12_381"])
+def test_fixed_base_table_rows_are_host_doublings(curve, monkeypatch):
+    """Row w of the table holds 2^(c w) P_i, and its -Y half -2^(c w) P_i,
+    the identity base the identity in every row: the JAX package's points
+    doubled c w times, as compressed bytes."""
+    gs, points, jax_points = fixed_case(curve, 1, 6)
+    c = 5
+    with_window(monkeypatch, c)
+    table = tmsm.fixed_base_table(gs, gs.points_to_device(points, "cpu"))
+    W = -(-16 * FieldSpec.get(gs.curve.r).nl // c)
+    assert (table.c, table.W, table.N, table.n) == (c, W, 6, 6)
+    assert table.x.shape == (gs.fs.nl, W, 6) and table.y2.shape == (gs.fs.nl, 2, W, 6)
+    assert torch.equal(table.inf, torch.tensor([[i == 3 for i in range(6)]] * W))
+    row = jax_points
+    cls = type(points[0])
+    for got, neg in zip(table_rows(gs, table, 0, cls), table_rows(gs, table, 1, cls)):
+        assert [q.to_bytes() for q in got] == [p.to_bytes() for p in row]
+        assert ([q.to_bytes() for i, q in enumerate(neg) if i != 3]
+                == [(-p).to_bytes() for i, p in enumerate(row) if i != 3])
+        for _ in range(c):
+            row = [p + p for p in row]
+    assert table.prefix(4).n == 4 and table.prefix(4).x is table.x
+    with pytest.raises(ValueError):
+        table.prefix(7)
+
+
+@pytest.mark.parametrize("curve,group,c", [("BN254", 1, 4), ("BN254", 1, 5), ("BLS12_381", 1, 4),
+                                            ("BLS12_381", 1, 5), ("BN254", 2, 5)])
+def test_fixed_base_msm_matches_plain_and_host(curve, group, c, monkeypatch):
+    """Five MSMs over a table of 40 bases (an identity among them) and a
+    prefix view of its first 32, sorted in groups cut by SORT_GROUP_ELEMS:
+    each equals the plain path's MSM over the same points and the host
+    oracle, as points. Scalars 0, 1, r - 1 (the top window's carry) and
+    B2 + 1 (a low digit of -B2 + 1) in every MSM."""
+    gs, points, jax_points = fixed_case(curve, group, 40)
+    r = gs.curve.r
+    B2 = 1 << (c - 1)
+    rng = np.random.default_rng(10 * c + group)
+
+    def scalars(n):
+        s = [int.from_bytes(rng.bytes(32), "little") % r for _ in range(n)]
+        s[0], s[1], s[2], s[4] = 0, 1, r - 1, B2 + 1
+        return s
+
+    P = gs.points_to_device(points, "cpu")
+    with_window(monkeypatch, c)
+    table = tmsm.fixed_base_table(gs, P)
+    head = table.prefix(32)
+    sets = [scalars(40), scalars(32), scalars(40), scalars(32), scalars(40)]
+    tables = [table, head, table, head, table]
+    jobs = [(t, tmsm.scalars_to_device(s, r, "cpu")) for t, s in zip(tables, sets)]
+    monkeypatch.setattr(tmsm, "SORT_GROUP_ELEMS", 2 * 2 * group * gs.fs.nl * table.W * 40)
+    assert tmsm._job_groups(gs, jobs, None) == [[0, 2], [1, 3], [4]]
+    sorts = []
+    real = tmsm.sort_fixed_base
+    monkeypatch.setattr(tmsm, "sort_fixed_base",
+                        lambda gs_, t, s: sorts.append(s.shape) or real(gs_, t, s))
+    got = tmsm.msm_pippenger_many(gs, jobs)
+    nl = FieldSpec.get(r).nl
+    assert sorts == [(nl, 2, 40), (nl, 2, 32), (nl, 40)]
+    plain = tmsm.msm_pippenger_many(
+        gs, [(gs.map(lambda t: t[:, :s.shape[1]], P), s) for (_, s) in jobs], c)
+    cls = type(points[0])
+    got_pts = gs.points_from_device(got, cls)
+    assert got_pts == gs.points_from_device(plain, cls)
+    for pt, s in zip(got_pts, sets):
+        want = _host_msm(JAX_MODULES[curve], jax_points[:len(s)], s)
+        assert pt.to_bytes() == want.to_bytes()
+
+
+def test_one_call_mixing_tables_and_point_tensors(monkeypatch):
+    """Jobs over a table and over point tensors in one call: one K4 pass a
+    kind, the results in job order, each the MSM's alone."""
+    gs, points, _ = fixed_case("BN254", 1, 24)
+    c = 5
+    P = gs.points_to_device(points, "cpu")
+    with_window(monkeypatch, c)
+    table = tmsm.fixed_base_table(gs, P)
+    rng = np.random.default_rng(3)
+    s = [tmsm.scalars_to_device([int.from_bytes(rng.bytes(32), "little") for _ in range(24)],
+                                CURVE.r, "cpu") for _ in range(4)]
+    jobs = [(P, s[0]), (table, s[1]), (P, s[2]), (table.prefix(24), s[3])]
+    passes = []
+    real = kernels.bucket_reduce
+    monkeypatch.setattr(kernels, "bucket_reduce",
+                        lambda gs_, b, *a: passes.append(tuple(b.shape[2:4])) or real(gs_, b, *a))
+    got = gs.points_from_device(tmsm.msm_pippenger_many(gs, jobs, c), type(points[0]))
+    assert passes == [(2, -(-256 // c)), (2, 1)]
+    for m, job in enumerate(jobs):
+        assert got[m] == gs.points_from_device(tmsm.msm_pippenger_many(gs, [job], c),
+                                               type(points[0]))[0]
+    with pytest.raises(ValueError):
+        tmsm.msm_pippenger_many(gs, jobs)  # the point tensors' jobs need c
+
+
+def test_fixed_base_window_rule():
+    """The fixed-base path's window size: the fewest point-op products over
+    c in 8..13 (K2's mixed adds, the fold's, one window's reduction)."""
+    picks = {n: tmsm.fixed_base_window(n, 256) for n in (16, 4032, 4096, 1 << 16)}
+    assert picks == {16: 8, 4032: 11, 4096: 11, 1 << 16: 13}
+    gs, points, _ = fixed_case("BN254", 1, 16)
+    table = tmsm.fixed_base_table(gs, gs.points_to_device(points, "cpu"))
+    assert (table.c, table.W) == (8, 32)  # the table takes the rule's c

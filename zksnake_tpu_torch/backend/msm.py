@@ -18,14 +18,20 @@ Pippenger of the JAX package:
   kernel's body under the flag);
 - the suffix-scan weighted reduction over every window at once, then a
   Horner pass across windows: kernel K4 (kernels.bucket_reduce), one pass
-  for every MSM of a call in two launches.
+  for every MSM of a call in two launches;
+- for bases that never change, a fixed-base path: a FixedBaseTable holds
+  2^(c w) P_i for every window w, made once on the device, and an MSM over
+  it is one window of W n points (sort_fixed_base), so K4 reduces one
+  window an MSM, not W. Its c comes from fixed_base_window.
 
 With metrics on (zksnake_tpu_torch.metrics), each stage is a span:
 msm.sort, msm.accumulate and msm.reduce, the last with the children
 msm.reduce.window and .horner on the card (K4, which also counts
 reduce_kernel_passes), or .top, .scan, .tree and .horner on the CPU (its
 plain version); both count the reduction's point ops, one a level, and
-msm_pippenger_many counts msm_points, the points of a call's MSMs.
+msm.reduce counts msm_windows, the windows it reduces.
+msm_pippenger_many counts msm_points, the points of a call's MSMs, and
+msm_fixed_points, those of its MSMs over tables.
 
 The JAX package's round table, its gather, the static round budget, the
 remainder loop and the lane caps fitted Mosaic's fixed grid and are not
@@ -127,6 +133,41 @@ def _pick_window(n):
     return min(range(3, 8), key=lambda c: -(-256 // c) * (n + (2 * c - 1) * (1 << (c - 1))))
 
 
+def _coord(gs, v):
+    """The limb tensors of one coordinate, as a list."""
+    return [v] if gs.group == 1 else list(v)
+
+
+def _sorted_runs(gs, digits, inf, xs, ys, B2, src=None):
+    """Sort each row of `digits` (rows, m) by |digit| and gather the signed
+    points of its slots: identity lanes (inf, (m,)) and |d| = 0 go to the
+    dropped run. xs: the X leaves (nl, m'); ys: the Y leaves with -Y
+    beside them (nl, 2 m'); src maps a slot to its point (the identity
+    where None, m' = m). Returns (pts (L, nl, rows, m), starts, lens
+    (rows, B2) int32 bounds of the run of |d| = b + 1)."""
+    rows, m = digits.shape
+    dev = digits.device
+    mag = torch.where(inf[None], 0, digits.abs())
+    order = torch.argsort(mag, dim=1, stable=True)  # (rows, m)
+    ms = torch.gather(mag, 1, order)
+    neg = torch.gather(digits < 0, 1, order)
+    if src is not None:
+        order = src(order)
+    # Y and -Y side by side: one gather picks the signed Y of every slot
+    ysrc_idx = (order + ys[0].shape[1] // 2 * neg.long()).reshape(-1)
+    nl = gs.fs.nl
+    pts = torch.empty((len(xs) + len(ys), nl, rows, m), dtype=DTYPE, device=dev)
+    flat = order.reshape(-1)
+    for i, leaf in enumerate(xs):
+        torch.index_select(leaf, 1, flat, out=pts[i].view(nl, rows * m))
+    for i, ycat in enumerate(ys):
+        torch.index_select(ycat, 1, ysrc_idx, out=pts[len(xs) + i].view(nl, rows * m))
+    bvals = torch.arange(1, B2 + 1, dtype=ms.dtype, device=dev).expand(rows, B2).contiguous()
+    lo = torch.searchsorted(ms, bvals, right=False)
+    hi = torch.searchsorted(ms, bvals, right=True)
+    return pts, lo.to(DTYPE).contiguous(), (hi - lo).to(DTYPE).contiguous()
+
+
 def sort_by_digit(gs, P, slimbs, c):
     """The accumulation input of one MSM, or of G MSMs over the same
     points: window digits, top-window spreading, and the sort by |digit| of
@@ -163,30 +204,103 @@ def sort_by_digit(gs, P, slimbs, c):
                            dim=1).view(rows, n)
 
     X, Y, Z = P
-    inf = gs.F.is_zero(Z)  # identity inputs ride the dropped |d| = 0 run
-    mag = torch.where(inf[None], 0, digits.abs())
-    order = torch.argsort(mag, dim=1, stable=True)  # (rows, n)
-    ms = torch.gather(mag, 1, order)
-    neg = torch.gather(digits < 0, 1, order)
-    # Y and -Y side by side: one gather picks the signed Y of every slot
-    ysrc_idx = (order + n * neg.long()).reshape(-1)
-    coord = (lambda v: [v]) if gs.group == 1 else list
-    xleaves, yleaves, nyleaves = coord(X), coord(Y), coord(gs._neg_coord(Y))
-    L = len(xleaves) + len(yleaves)
-    nl = gs.fs.nl
-    pts = torch.empty((L, nl, rows, n), dtype=DTYPE, device=dev)
-    flat = order.reshape(-1)
-    for i, leaf in enumerate(xleaves):
-        torch.index_select(leaf, 1, flat, out=pts[i].view(nl, rows * n))
-    for i, (leaf, nleaf) in enumerate(zip(yleaves, nyleaves)):
-        ycat = torch.cat([leaf, nleaf], dim=1)
-        torch.index_select(ycat, 1, ysrc_idx, out=pts[len(xleaves) + i].view(nl, rows * n))
-    bvals = torch.arange(1, B2 + 1, dtype=ms.dtype, device=dev).expand(rows, B2).contiguous()
-    lo = torch.searchsorted(ms, bvals, right=False)
-    hi = torch.searchsorted(ms, bvals, right=True)
-    starts = lo.to(DTYPE).contiguous()
-    lens = (hi - lo).to(DTYPE).contiguous()
+    ycat = [torch.cat([y, ny], dim=1)
+            for y, ny in zip(_coord(gs, Y), _coord(gs, gs._neg_coord(Y)))]
+    # identity inputs ride the dropped |d| = 0 run
+    pts, starts, lens = _sorted_runs(gs, digits, gs.F.is_zero(Z), _coord(gs, X), ycat, B2)
     return pts, starts, lens, S_top, V_cap
+
+
+# ------------------------------------------------------------------
+# Fixed-base MSMs: one table of shifted bases, one window an MSM
+#
+# For bases that never change (an SRS on the card), sum_i s_i P_i =
+# sum_w 2^(c w) sum_i d_(i,w) P_i = sum_(w,i) d_(i,w) (2^(c w) P_i): with
+# the shifted bases 2^(c w) P_i in a table made once, an MSM's W windows
+# of n points become one window of W n points. K4 then reduces one window
+# an MSM, not W, and Horner has one step.
+# ------------------------------------------------------------------
+
+
+class FixedBaseTable:
+    """The shifted bases 2^(c w) P_i of N bases P_i, for every window w of
+    c bits of a scalar of the group's order (W = ceil(nbits / c)), affine
+    on the device, window-major: leaves x (nl, W, N) and y2 (nl, 2, W, N)
+    (Y, then -Y), inf (W, N) the identity mask. An MSM whose points are a
+    table takes msm_pippenger_many's fixed-base path; `n` bases of it are
+    used, the first n (prefix)."""
+
+    def __init__(self, x, y2, inf, c, n):
+        self.x, self.y2, self.inf, self.c, self.n = x, y2, inf, c, n
+        self.W, self.N = inf.shape
+
+    def prefix(self, n):
+        """The table of the first n bases, over the same tensors."""
+        if not 0 < n <= self.N:
+            raise ValueError(f"a prefix of {n} of {self.N} bases")
+        return FixedBaseTable(self.x, self.y2, self.inf, self.c, n)
+
+
+def fixed_base_table(gs, P):
+    """The FixedBaseTable of device-resident bases P (projective leaves
+    (nl, N) with Z in {0, 1}) at the window size fixed_base_window picks
+    for N bases, made on the device: row w + 1 from row w by c doublings
+    over the N lanes, then every row to affine with one batched
+    inversion."""
+    N = gs.leaves(P)[0].shape[1]
+    nbits = FieldSpec.get(gs.curve.r).nl * 16
+    c = fixed_base_window(N, nbits)
+    W = -(-nbits // c)
+    rows = [P]
+    for _ in range(W - 1):
+        Q = rows[-1]
+        for _ in range(c):
+            Q = gs.double(Q)
+        rows.append(Q)
+    T = gs.map(lambda *r: torch.stack(r, dim=1).view(r[0].shape[0], -1), *rows)
+    (X, Y), inf = gs.to_affine(T)
+    x = gs.cmap(lambda t: t.view(t.shape[0], W, N), X)
+
+    def pair(y, ny):
+        return torch.stack([y, ny], dim=1).view(y.shape[0], 2, W, N)
+
+    ny = gs._neg_coord(Y)
+    y2 = pair(Y, ny) if gs.group == 1 else tuple(map(pair, Y, ny))
+    return FixedBaseTable(x, y2, inf.view(W, N), c, N)
+
+
+def fixed_base_window(n, nbits):
+    """The window size c of the fixed-base path for n bases and nbits-bit
+    scalars: the c in 8..13 with the fewest point-op products in the path,
+    K2's n ceil(nbits / c) mixed adds (11 products each with a small b3),
+    about that count over K2's chunk length of fold adds and the one
+    window's c 2^(c - 1) reduction adds in K4 (complete adds, 14 each)."""
+    def products(c):
+        adds = n * -(-nbits // c)
+        return 11 * adds + 14 * (adds // kernels.K2_CHUNK + c * (1 << (c - 1)))
+
+    return min(range(8, 14), key=products)
+
+
+def sort_fixed_base(gs, table, slimbs):
+    """sort_by_digit for MSMs over a FixedBaseTable: digit (w, i), window
+    w low first, goes on table point (w, i), and each MSM is one row of
+    W n slots sorted by |digit| (no top-window spreading: K2's chunks and
+    fold lanes split long runs). slimbs: (SL, n) or (SL, G, n). Returns
+    (pts (L, nl, G, W n), starts, lens (G, B2))."""
+    n, W, N, c = table.n, table.W, table.N, table.c
+    nbits = slimbs.shape[0] * 16
+    if slimbs.shape[-1] != n or -(-nbits // c) != W:
+        raise ValueError(f"scalars {tuple(slimbs.shape)} for a table of {W} windows of "
+                         f"{c} bits over {n} bases")
+    digits = _signed_window_digits(slimbs, c, nbits).flip(0)  # (W, [G,] n) low-first
+    if digits.ndim == 2:
+        digits = digits[:, None]
+    digits = digits.transpose(0, 1).reshape(-1, W * n)  # slot w n + i
+    src = None if n == N else (lambda o: o // n * N + o % n)
+    xs = [t.view(t.shape[0], W * N) for t in _coord(gs, table.x)]
+    ys = [t.view(t.shape[0], 2 * W * N) for t in _coord(gs, table.y2)]
+    return _sorted_runs(gs, digits, table.inf[:, :n].reshape(-1), xs, ys, 1 << (c - 1), src)
 
 
 # the most int32 elements of sorted point planes (sort_by_digit's pts) that
@@ -195,14 +309,18 @@ SORT_GROUP_ELEMS = 1 << 28
 
 
 def _job_groups(gs, jobs, c):
-    """The jobs in groups that sort_by_digit and K2 take in one call: jobs
-    over the same points (the same tensors, the same view of them), in job
-    order, each group's sorted planes within SORT_GROUP_ELEMS."""
-    W = -(-16 * jobs[0][1].shape[0] // c)
+    """The jobs in groups that sort_by_digit (sort_fixed_base) and K2 take
+    in one call: jobs over the same points (the same tensors, the same view
+    of them; the same table and prefix), in job order, each group's sorted
+    planes within SORT_GROUP_ELEMS."""
     L = 2 * gs.group
     groups, filling = [], {}
     for i, (P, slimbs) in enumerate(jobs):
-        key = tuple((t.data_ptr(), tuple(t.shape), t.stride()) for t in gs.leaves(P))
+        if isinstance(P, FixedBaseTable):
+            key, W = (_coord(gs, P.x)[0].data_ptr(), P.n), P.W
+        else:
+            key = tuple((t.data_ptr(), tuple(t.shape), t.stride()) for t in gs.leaves(P))
+            W = -(-16 * slimbs.shape[0] // c)
         cap = max(1, SORT_GROUP_ELEMS // (L * gs.fs.nl * W * slimbs.shape[1]))
         g = filling.get(key)
         if g is None or len(g) == cap:
@@ -212,24 +330,26 @@ def _job_groups(gs, jobs, c):
     return groups
 
 
-def msm_pippenger_many(gs, jobs, c):
-    """M MSMs of one group with one window size c. jobs: [(P, slimbs)],
-    P projective coords (nl, n_i) with Z in {0, 1}, slimbs (SL, n_i) raw
-    16-bit scalar limbs. The jobs over the same points are sorted and
-    bucket-accumulated (K2, or K2m under ZKSNAKE_MXU_MONTMUL=1) together,
-    in groups (_job_groups), every other job on its own; the reduction (K4)
-    runs once over all of them. Returns the projective results, leaves
-    (nl, M). Counts msm_points, the jobs' points together."""
-    metrics.count("msm_points", sum(slimbs.shape[1] for _, slimbs in jobs))
+def _msm_pass(gs, jobs, c):
+    """One reduction pass of msm_pippenger_many: jobs all over point
+    tensors at window c, or all over FixedBaseTables of one c (one window
+    a job). Counts msm_windows, the windows K4 reduces."""
     mma = config.mxu_montmul()
     accumulate = kernels.bucket_accumulate_mma if mma else kernels.bucket_accumulate
+    fixed = isinstance(jobs[0][0], FixedBaseTable)
+    if fixed:
+        c = jobs[0][0].c
+        S_top, V_cap = 1, 1 << (c - 1)
     sums = [None] * len(jobs)
     for group in _job_groups(gs, jobs, c):
         P, slimbs = jobs[group[0]]
         if len(group) > 1:
             slimbs = torch.stack([jobs[i][1] for i in group], dim=1)
         with metrics.phase("msm.sort"):
-            pts, starts, lens, S_top, V_cap = sort_by_digit(gs, P, slimbs, c)
+            if fixed:
+                pts, starts, lens = sort_fixed_base(gs, P, slimbs)
+            else:
+                pts, starts, lens, S_top, V_cap = sort_by_digit(gs, P, slimbs, c)
         with metrics.phase("msm.accumulate"):
             out = accumulate(gs, pts, starts, lens)  # (3|6, nl, G W, B2)
         del pts
@@ -238,7 +358,38 @@ def msm_pippenger_many(gs, jobs, c):
             sums[i] = part
     buckets = torch.stack(sums, dim=2)  # (3|6, nl, M, W, B2)
     with metrics.phase("msm.reduce"):
+        metrics.count("msm_windows", buckets.shape[2] * buckets.shape[3])
         return gs.unflatten(list(kernels.bucket_reduce(gs, buckets, c, S_top, V_cap)))
+
+
+def msm_pippenger_many(gs, jobs, c=None):
+    """M MSMs of one group. jobs: [(P, slimbs)], slimbs (SL, n_i) raw
+    16-bit scalar limbs; P projective coords (nl, n_i) with Z in {0, 1},
+    taken at window size c, or a FixedBaseTable (of n_i bases), taken at
+    its own c in one window. The jobs over the same points are sorted and
+    bucket-accumulated (K2, or K2m under ZKSNAKE_MXU_MONTMUL=1) together,
+    in groups (_job_groups), every other job on its own; the reduction (K4)
+    runs once over the jobs of each kind (point tensors; tables of one c).
+    Returns the projective results in job order, leaves (nl, M). Counts
+    msm_points, the jobs' points together, msm_fixed_points, those of the
+    jobs over tables, and msm_windows."""
+    metrics.count("msm_points", sum(slimbs.shape[1] for _, slimbs in jobs))
+    kinds = {}
+    for i, (P, _) in enumerate(jobs):
+        kinds.setdefault(P.c if isinstance(P, FixedBaseTable) else None, []).append(i)
+    metrics.count("msm_fixed_points",
+                  sum(jobs[i][1].shape[1] for k, ids in kinds.items() if k is not None
+                      for i in ids))
+    if None in kinds and c is None:
+        raise ValueError("MSMs over point tensors need a window size c")
+    if len(kinds) == 1:
+        return _msm_pass(gs, jobs, c)
+    order, parts = [], []
+    for ids in kinds.values():
+        parts.append(_msm_pass(gs, [jobs[i] for i in ids], c))
+        order += ids
+    back = torch.argsort(torch.tensor(order)).to(gs.leaves(parts[0])[0].device)
+    return gs.map(lambda *t: torch.cat(t, dim=-1)[:, back], *parts)
 
 
 def msm_pippenger(gs, P, slimbs, c=13):

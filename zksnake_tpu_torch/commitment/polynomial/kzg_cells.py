@@ -18,9 +18,10 @@ What consensus-specs computes for one blob in `blob_to_kzg_commitment`
 Everything between the blobs' upload and the points' way back runs on the
 card, batched over blobs: the two NTTs of backend/ntt.py, the quotients of
 every cell by a log-depth scan of backend/field.py ops, and every MSM of
-the call, 1 + cells per blob, in one msm_pippenger_many pass over the SRS
-that set-up left on the card. Spans: kzg.cells.extend, kzg.cells.quotient,
-kzg.cells.msm.
+the call, 1 + cells per blob, in one msm_pippenger_many pass over the
+fixed-base table of the SRS (backend/msm.py, FixedBaseTable) that set-up
+left on the card: one window an MSM. Spans: kzg.cells.extend,
+kzg.cells.quotient, kzg.cells.msm.
 """
 
 import torch
@@ -28,7 +29,7 @@ import torch
 from ... import metrics
 from ...backend.curve_ops import get_group_spec
 from ...backend.field import DTYPE, from_mont, mod_add, mont_mul, to_mont
-from ...backend.msm import _pick_window, msm_pippenger_many
+from ...backend.msm import fixed_base_table, msm_pippenger_many
 from ...backend.ntt import Domain, intt_device, ntt_device
 from .kzg import KZG
 
@@ -53,14 +54,14 @@ class KZGCells(KZG):
         self.dom_blob = Domain.get(params, blob_size)
         self.dom_ext = Domain.get(params, ext_size)
         self.fr = self.dom_blob.fs
-        self.window = _pick_window(blob_size)
-        self.srs = None
+        self.table = None
 
     def setup(self):
         """tau and its powers as KZG.setup draws and makes them, then the
-        blob_size monomial G1 points onto the card, once."""
+        blob_size monomial G1 points onto the card and their fixed-base
+        table made there, once."""
         super().setup()
-        self.srs = self.gs.points_to_device(self.G1_tau, self.device)
+        self.table = fixed_base_table(self.gs, self.gs.points_to_device(self.G1_tau, self.device))
         self._zpow = self._coset_powers()
 
     def _coset_powers(self):
@@ -141,12 +142,12 @@ class KZGCells(KZG):
             q = from_mont(fs, self._quotients(coeffs))
             p = from_mont(fs, coeffs)
         with metrics.phase("kzg.cells.msm"):
-            short = self.gs.map(lambda t: t[:, :n - self.cell_size], self.srs)
+            short = self.table.prefix(n - self.cell_size)
             jobs = []
             for b in range(B):
-                jobs.append((self.srs, p[:, b]))
+                jobs.append((self.table, p[:, b]))
                 jobs.extend((short, q[:, b, i]) for i in range(self.cells))
-            res = msm_pippenger_many(self.gs, jobs, self.window)
+            res = msm_pippenger_many(self.gs, jobs)
             points = self.gs.points_from_device(res, self.E.curve.PointG1)
         per = self.cells + 1
         commitments = points[::per]
