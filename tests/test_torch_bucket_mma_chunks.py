@@ -34,19 +34,9 @@ from zksnake_tpu_torch.backend import msm as tmsm
 from zksnake_tpu_torch.backend.curve_ops import get_group_spec
 from zksnake_tpu_torch.curves import get_curve_module
 
-torch.set_num_threads(1)
+from torch_support import CURVES, chain_points
 
 T = kernels.K2_CHUNK
-CURVES = ["BN254", "BLS12_381"]
-
-
-def chain_points(module, group, n, step):
-    gen = module.g1() if group == 1 else module.g2()
-    P, d, out = gen * 5, gen * step, []
-    for _ in range(n):
-        out.append(P)
-        P = P + d
-    return out
 
 
 def point_rows(gs, points, perm):

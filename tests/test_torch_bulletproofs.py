@@ -9,8 +9,6 @@ package's generators, carried across as bytes by backend/state.py, prove
 the same in the port.
 """
 
-import random
-
 import pytest
 import torch
 
@@ -26,16 +24,7 @@ from zksnake_tpu_torch.subprotocol.bulletproofs import (
 from zksnake_tpu_torch.subprotocol.bulletproofs import range_proof as torch_range_proof
 from zksnake_tpu_torch.subprotocol.bulletproofs.range_proof import RangeProofObject
 
-torch.set_num_threads(1)
-
-CURVES = ["BN254", "BLS12_381"]
-
-
-def stream(monkeypatch, seed, *modules):
-    """Each module's get_random_int draws from its own random.Random(seed)."""
-    for mod in modules:
-        rng = random.Random(seed)
-        monkeypatch.setattr(mod, "get_random_int", lambda n, rng=rng: 1 + rng.randrange(n))
+from torch_support import CURVES, stream
 
 
 def pts(points):

@@ -31,16 +31,9 @@ from zksnake_tpu_torch.commitment.polynomial import kzg as torch_kzg
 from zksnake_tpu_torch.commitment.vector import Merkle
 from zksnake_tpu_torch.polynomial import Polynomial
 
-torch.set_num_threads(1)
+from torch_support import CURVES, stream
 
 POLYS = ([1, 3, 3, 7], [1, 2, 3, 4], [1, 2, 3, 0])
-
-
-def stream(monkeypatch, seed, *modules):
-    """Each module's get_random_int draws from its own random.Random(seed)."""
-    for mod in modules:
-        rng = random.Random(seed)
-        monkeypatch.setattr(mod, "get_random_int", lambda n, rng=rng: 1 + rng.randrange(n))
 
 
 def as_bytes(x):
@@ -52,7 +45,7 @@ def as_bytes(x):
     return bytes(x.to_bytes())
 
 
-@pytest.mark.parametrize("group", ["BN254", "BLS12_381"])
+@pytest.mark.parametrize("group", CURVES)
 def test_kzg_matches_jax(monkeypatch, group):
     stream(monkeypatch, f"kzg-{group}", jax_kzg, torch_kzg)
     ref, kzg = JaxKZG(4, group), KZG(4, group, device="cpu")
@@ -119,7 +112,7 @@ def test_multi_kzg_matches_jax(monkeypatch):
     assert not kzg.multi_verify(verifier_query, bad)
 
 
-@pytest.mark.parametrize("group", ["BN254", "BLS12_381"])
+@pytest.mark.parametrize("group", CURVES)
 def test_ipa_pcs_matches_jax(monkeypatch, group):
     stream(monkeypatch, f"ipa-{group}", jax_ipa, torch_ipa)
     ref, ipa = JaxIPA(4, group), IPA(4, group, device="cpu")

@@ -13,18 +13,14 @@ import pytest
 
 import jax
 import jax.numpy as jnp
-import torch
 
 from zksnake_tpu.backend.curve_ops import get_group_spec as jax_group
 from zksnake_tpu.curves import ec_bn254
 from zksnake_tpu_torch.backend.curve_ops import get_group_spec as torch_group
-from zksnake_tpu_torch.curves import get_curve_module
 
-torch.set_num_threads(1)
+from torch_support import CURVE, PORT
 
 JAX_CURVE = ec_bn254._curve
-PORT = get_curve_module("BN254", "cpu")
-CURVE = PORT._curve
 
 
 def host_points(group, seed, module=PORT):

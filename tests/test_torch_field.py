@@ -24,7 +24,7 @@ from zksnake_tpu.constant import (
 from zksnake_tpu_torch.backend import field as tf
 from zksnake_tpu_torch.backend import kernels
 
-torch.set_num_threads(1)
+from torch_support import random_limbs, same
 
 FIELDS = {
     "bn254_fr": BN254_SCALAR_FIELD,
@@ -34,22 +34,8 @@ FIELDS = {
 }
 
 
-def random_limbs(p, n, seed):
-    """(nl, n) uint32 limbs of values < p; lanes 0, 1, 2 hold 0, 1, p - 1."""
-    fs = jf.FieldSpec.get(p)
-    rng = np.random.default_rng(seed)
-    limbs = rng.integers(0, 1 << 16, size=(fs.nl, n), dtype=np.int64)
-    limbs[-1] = rng.integers(0, int(fs.p_limbs[-1]), size=n)
-    limbs[:, :3] = fs.raw_to_host([0, 1, p - 1])
-    return limbs.astype(np.uint32)
-
-
 def both(arr):
     return jnp.asarray(arr), torch.from_numpy(arr.astype(np.int32))
-
-
-def same(j, t):
-    np.testing.assert_array_equal(np.asarray(j).astype(np.int64), t.numpy().astype(np.int64))
 
 
 @pytest.mark.parametrize("name", FIELDS)

@@ -30,7 +30,7 @@ from zksnake_tpu.curves import ec_bn254
 from zksnake_tpu_torch.backend import kernels
 from zksnake_tpu_torch.scripts import debug_g2_block
 
-torch.set_num_threads(1)
+import torch_support  # noqa: F401  (torch on one thread)
 
 LANES = 64
 

@@ -15,15 +15,13 @@ import pytest
 import torch
 
 from zksnake_tpu.arithmetization import LayeredCircuit as JaxLayeredCircuit
-from zksnake_tpu.constant import BLS12_381_SCALAR_FIELD, BN254_SCALAR_FIELD
+from zksnake_tpu.constant import BN254_SCALAR_FIELD
 from zksnake_tpu.subprotocol.gkr import GKR as JaxGKR
 from zksnake_tpu_torch.arithmetization import LayeredCircuit
 from zksnake_tpu_torch.polynomial import Polynomial
 from zksnake_tpu_torch.subprotocol.gkr import GKR
 
-torch.set_num_threads(1)
-
-FIELDS = {"BN254": BN254_SCALAR_FIELD, "BLS12_381": BLS12_381_SCALAR_FIELD}
+from torch_support import CURVES, FIELDS
 
 # tests/test_gkr.py's circuits as (inputs, layers of (gate, lhs, rhs, out))
 CIRCUITS = {
@@ -75,7 +73,7 @@ def proof_ints(proof):
 
 
 @pytest.mark.parametrize("name", [*CIRCUITS, "wide_8x3"])
-@pytest.mark.parametrize("curve", ["BN254", "BLS12_381"])
+@pytest.mark.parametrize("curve", CURVES)
 def test_gkr_matches_jax(curve, name):
     p = FIELDS[curve]
     inputs, layers = CIRCUITS[name] if name in CIRCUITS else wide_circuit(8, 3, name)

@@ -21,7 +21,6 @@ import os
 import random
 import subprocess
 import sys
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -31,7 +30,6 @@ import torch
 
 import zksnake_tpu.arithmetization as jax_front
 import zksnake_tpu_torch as torch_front
-from zksnake_tpu.constant import BLS12_381_SCALAR_FIELD, BN254_SCALAR_FIELD
 from zksnake_tpu.curves.params import CURVES as JAX_CURVES
 from zksnake_tpu.groth16 import Groth16 as JaxGroth16
 from zksnake_tpu.groth16 import protocol as jax_protocol
@@ -42,11 +40,7 @@ from zksnake_tpu_torch.backend.state import prover_state_from_jax
 from zksnake_tpu_torch.groth16 import Groth16, Proof, ProvingKey, VerifyingKey
 from zksnake_tpu_torch.groth16 import protocol as torch_protocol
 
-torch.set_num_threads(1)
-
-REPO = Path(__file__).resolve().parents[1]
-CURVES = ["BN254", "BLS12_381"]
-FIELDS = {"BN254": BN254_SCALAR_FIELD, "BLS12_381": BLS12_381_SCALAR_FIELD}
+from torch_support import CURVES, FIELDS, REPO
 
 
 def det_random_int(curve, skip=0):

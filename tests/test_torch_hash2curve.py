@@ -14,6 +14,8 @@ from zksnake_tpu_torch.curves import hash2curve
 from zksnake_tpu_torch.curves.params import CURVES
 from zksnake_tpu_torch.curves.point import get_g1_class
 
+import torch_support  # noqa: F401  (torch on one thread)
+
 JAX_MODULES = {"BN254": ec_bn254, "BLS12_381": ec_bls12_381}
 MESSAGES = [b"", b"abc", b"hello", bytes(range(200))]
 

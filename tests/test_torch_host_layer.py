@@ -16,7 +16,6 @@ through integers and bytes.
 import random
 
 import pytest
-import torch
 
 import zksnake_tpu.arithmetization as jax_front
 import zksnake_tpu_torch.arithmetization as torch_front
@@ -49,10 +48,8 @@ from zksnake_tpu_torch.polynomial import (
     ifft,
 )
 
-torch.set_num_threads(1)
+from torch_support import CURVES, FIELDS
 
-CURVES = ["BN254", "BLS12_381"]
-FIELDS = {"BN254": BN254_SCALAR_FIELD, "BLS12_381": BLS12_381_SCALAR_FIELD}
 JAX_MODULES = {"BN254": ec_bn254, "BLS12_381": ec_bls12_381}
 
 

@@ -35,6 +35,8 @@ from zksnake_tpu_torch.backend.field import FieldSpec
 from zksnake_tpu_torch.curves import get_curve_module
 from zksnake_tpu_torch.scripts import debug_g2_block
 
+from torch_support import CURVES
+
 pytestmark = pytest.mark.cuda
 
 FIXTURES = Path(__file__).resolve().parent / "fixtures"
@@ -86,7 +88,7 @@ def test_mont_mul_mma_kernel_matches_plain(card, p, n):
     assert torch.equal(got, kernels.mont_mul(fs, a, b))
 
 
-@pytest.mark.parametrize("curve", ["BN254", "BLS12_381"])
+@pytest.mark.parametrize("curve", CURVES)
 @pytest.mark.parametrize("group", [1, 2])
 def test_bucket_kernel_matches_plain(card, curve, group):
     cm = get_curve_module(curve, card)
@@ -112,7 +114,7 @@ BUCKET_KERNELS = {"k2": ("bucket_accumulate", True), "k2m": ("bucket_accumulate_
 
 
 @pytest.mark.parametrize("kernel", sorted(BUCKET_KERNELS))
-@pytest.mark.parametrize("curve", ["BN254", "BLS12_381"])
+@pytest.mark.parametrize("curve", CURVES)
 @pytest.mark.parametrize("group", [1, 2])
 def test_bucket_kernel_chunks_match_plain_at_the_edges(card, curve, group, kernel):
     """K2 and K2m against their chunked plain versions, limb for limb, where
@@ -143,7 +145,7 @@ def test_bucket_kernel_chunks_match_plain_at_the_edges(card, curve, group, kerne
 
 
 @pytest.mark.parametrize("kernel", sorted(BUCKET_KERNELS))
-@pytest.mark.parametrize("curve", ["BN254", "BLS12_381"])
+@pytest.mark.parametrize("curve", CURVES)
 @pytest.mark.parametrize("group", [1, 2])
 def test_bucket_kernels_match_plain_on_overlapping_runs(card, curve, group, kernel):
     """Runs that share slots, as a direct call may give them: each window's
@@ -174,7 +176,7 @@ def test_bucket_kernels_match_plain_on_overlapping_runs(card, curve, group, kern
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("curve", ["BN254", "BLS12_381"])
+@pytest.mark.parametrize("curve", CURVES)
 @pytest.mark.parametrize("group", [1, 2])
 def test_bucket_mma_kernel_matches_plain_and_k2(card, curve, group):
     """K2m on ragged runs (empty buckets in the spread top window) against
@@ -229,7 +231,7 @@ def reduce_inputs(curve, group, c, M, W, device, seed):
     return gs, torch.stack([t[:, idx] for t in gs.leaves(pool)]).contiguous()
 
 
-@pytest.mark.parametrize("curve", ["BN254", "BLS12_381"])
+@pytest.mark.parametrize("curve", CURVES)
 @pytest.mark.parametrize("group", [1, 2])
 @pytest.mark.parametrize("c", [3, 7, 9, 11, 13])
 @pytest.mark.parametrize("M", [1, 4])
@@ -406,7 +408,7 @@ def test_msm_on_card_matches_host_oracle(card, group):
 
 
 @pytest.mark.parametrize("mxu", ["0", "1"])
-@pytest.mark.parametrize("curve", ["BN254", "BLS12_381"])
+@pytest.mark.parametrize("curve", CURVES)
 def test_fixture_proof_on_card(card, curve, mxu, monkeypatch):
     from zksnake_tpu_torch import BLS12_381_SCALAR_FIELD, ConstraintSystem, R1CS, Var
     from zksnake_tpu_torch.backend import field

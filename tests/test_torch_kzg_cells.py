@@ -23,6 +23,8 @@ from zksnake_tpu_torch.backend.limbs import ints_to_limbs
 from zksnake_tpu_torch.backend.ntt import Domain
 from zksnake_tpu_torch.curves.params import BLS12_381
 
+import torch_support  # noqa: F401  (torch on one thread)
+
 R = BLS12_381_SCALAR_FIELD
 SEED = 2**34 + 11
 K = 3  # the request the tests prove

@@ -13,12 +13,9 @@ from zksnake_tpu_torch import metrics
 from zksnake_tpu_torch.backend import kernels
 from zksnake_tpu_torch.backend import msm as tmsm
 from zksnake_tpu_torch.backend.curve_ops import get_group_spec
-from zksnake_tpu_torch.curves import get_curve_module
 
-torch.set_num_threads(1)
+from torch_support import CURVE, PORT
 
-PORT = get_curve_module("BN254", "cpu")
-CURVE = PORT._curve
 REDUCE_CHILDREN = ("msm.reduce.top", "msm.reduce.scan", "msm.reduce.tree", "msm.reduce.horner")
 
 

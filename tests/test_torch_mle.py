@@ -17,7 +17,7 @@ import torch
 
 from zksnake_tpu.backend import config as jax_config
 from zksnake_tpu.backend import mle as jax_mle
-from zksnake_tpu.constant import BLS12_381_SCALAR_FIELD, BN254_SCALAR_FIELD
+from zksnake_tpu.constant import BN254_SCALAR_FIELD
 from zksnake_tpu.polynomial import MultilinearPolynomial as JaxMLE
 from zksnake_tpu.subprotocol.sumcheck import Sumcheck as JaxSumcheck
 from zksnake_tpu_torch.backend import config as torch_config
@@ -25,9 +25,8 @@ from zksnake_tpu_torch.backend import mle as torch_mle
 from zksnake_tpu_torch.polynomial import MultilinearPolynomial
 from zksnake_tpu_torch.subprotocol.sumcheck import Sumcheck
 
-torch.set_num_threads(1)
+from torch_support import CURVES, FIELDS
 
-FIELDS = {"BN254": BN254_SCALAR_FIELD, "BLS12_381": BLS12_381_SCALAR_FIELD}
 HOST = 1 << 62
 
 
@@ -47,7 +46,7 @@ def force(monkeypatch, path):
 
 
 @pytest.mark.parametrize("path", ["host", "fold"])
-@pytest.mark.parametrize("curve", ["BN254", "BLS12_381"])
+@pytest.mark.parametrize("curve", CURVES)
 def test_partial_evaluate_matches_jax(monkeypatch, curve, path):
     p = FIELDS[curve]
     nv = 6
@@ -81,7 +80,7 @@ def test_fold_dispatch_follows_the_jax_rules(monkeypatch):
             jax_mle.should_use_device(nv, nnz, k), (nv, nnz, k)
 
 
-@pytest.mark.parametrize("curve", ["BN254", "BLS12_381"])
+@pytest.mark.parametrize("curve", CURVES)
 def test_mle_operations_match_jax(curve):
     p = FIELDS[curve]
     nv = 4
@@ -128,7 +127,7 @@ def test_device_sumcheck_table_matches_jax(monkeypatch):
 
 
 @pytest.mark.parametrize("path", ["host", "fold"])
-@pytest.mark.parametrize("curve", ["BN254", "BLS12_381"])
+@pytest.mark.parametrize("curve", CURVES)
 def test_sumcheck_matches_jax(monkeypatch, curve, path):
     """Sumcheck.prove's claim, round polynomials and challenges equal the
     JAX package's host path (which its own tests hold equal to its device

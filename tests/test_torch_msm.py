@@ -37,11 +37,9 @@ from zksnake_tpu_torch.backend.field import FieldSpec
 from zksnake_tpu_torch.curves import get_curve_module
 from zksnake_tpu_torch.ecc import EllipticCurve
 
-torch.set_num_threads(1)
+from torch_support import CURVE, CURVES, PORT
 
 JAX_CURVE = ec_bn254._curve
-PORT = get_curve_module("BN254", "cpu")
-CURVE = PORT._curve
 
 
 def gen_of(module, group):
@@ -124,7 +122,7 @@ def test_bucket_plain_matches_jax_round_loop_g2():
         np.testing.assert_array_equal(np.asarray(a).astype(np.int64), b)
 
 
-@pytest.mark.parametrize("curve", ["BN254", "BLS12_381"])
+@pytest.mark.parametrize("curve", CURVES)
 @pytest.mark.parametrize("group", [1, 2])
 def test_bucket_mma_plain_matches_k2_plain(curve, group):
     """K2m's plain version (every product through K3's plain version)
@@ -300,7 +298,7 @@ def with_window(monkeypatch, c):
     monkeypatch.setattr(tmsm, "fixed_base_window", lambda n, nbits: c)
 
 
-@pytest.mark.parametrize("curve", ["BN254", "BLS12_381"])
+@pytest.mark.parametrize("curve", CURVES)
 def test_fixed_base_table_rows_are_host_doublings(curve, monkeypatch):
     """Row w of the table holds 2^(c w) P_i, and its -Y half -2^(c w) P_i,
     the identity base the identity in every row: the JAX package's points

@@ -30,7 +30,7 @@ from zksnake_tpu_torch.curves.params import CURVES
 from zksnake_tpu_torch.backend.field import FieldSpec, mont_mul
 from zksnake_tpu_torch.backend.spmv import DeviceSparseMatrix, reduce_wide, segment_sum_field
 
-torch.set_num_threads(1)
+import torch_support  # noqa: F401  (torch on one thread)
 
 P = BN254_SCALAR_FIELD
 KINDS = {

@@ -16,7 +16,6 @@ the same; verify accepts and rejects; prefix_sum_mod equals the JAX one.
 """
 
 import random
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -27,7 +26,6 @@ import jax.numpy as jnp
 import zksnake_tpu.arithmetization as jax_front
 import zksnake_tpu_torch.arithmetization as torch_front
 from zksnake_tpu.backend import field as jax_field
-from zksnake_tpu.constant import BLS12_381_SCALAR_FIELD, BN254_SCALAR_FIELD
 from zksnake_tpu.plonk import Plonk as JaxPlonk
 from zksnake_tpu.plonk import protocol as jax_protocol
 from zksnake_tpu_torch.backend import config as torch_config
@@ -36,11 +34,8 @@ from zksnake_tpu_torch.backend import kernels
 from zksnake_tpu_torch.plonk import Plonk, Proof, ProvingKey, VerifyingKey
 from zksnake_tpu_torch.plonk import protocol as torch_protocol
 
-torch.set_num_threads(1)
+from torch_support import CURVES, FIELDS, REPO
 
-REPO = Path(__file__).resolve().parents[1]
-CURVES = ["BN254", "BLS12_381"]
-FIELDS = {"BN254": BN254_SCALAR_FIELD, "BLS12_381": BLS12_381_SCALAR_FIELD}
 INPUT = {"BN254": 3, "BLS12_381": 1337}
 
 

@@ -26,6 +26,8 @@ from jax.experimental.pallas import tpu as pltpu
 from zksnake_tpu_torch.backend import relayout
 from zksnake_tpu_torch.scripts import bench_sortdma
 
+import torch_support  # noqa: F401  (torch on one thread)
+
 NL = 16
 
 

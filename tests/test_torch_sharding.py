@@ -23,6 +23,8 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+import torch_support  # noqa: F401  (torch on one thread)
+
 NDEV = 4
 SPAWN_TIMEOUT_S = 300
 # (group, points): 4 lanes a rank take double-and-add, 64 the Pippenger
