@@ -19,12 +19,14 @@ Phases, one line each or more:
      shapes, timed in turns with K1; then against K1 and timed in turns with
      it at every launch width of the flagged warm proves of phases 11 and 12
      (K3_PATH_WIDTHS), with each path's loss, launches x (ms - bound);
-  3. K2 (bucket_accumulate) against its chunked plain version, bit for bit,
-     on one MSM's windows at the prove shape (2^17 points, c = 11), G1 and G2
-     of BN254 (16-limb build) and of BLS12-381 (24-limb build), and at the
-     G1 MSM's shape (2^20 points, c = 13); the chunk length, the chunks and
-     the CUDA launches of one call;
-  4. K2m (bucket_accumulate_mma) against its chunked plain version and
+  3. K2 (bucket_accumulate) against its plain version (affine normal form),
+     bit for bit, on one MSM's windows over distinct points at the prove
+     shape (2^17 points, c = 11), G1 and G2 of BN254 (16-limb build) and of
+     BLS12-381 (24-limb build), at the G1 MSM's shape (2^20 points, c = 13)
+     and at the EIP-7594 request's call (57 fixed-base MSMs, c = 11); its
+     bounds at RCB15's and at batch-affine's products, the chunk length,
+     the chunks, the exceptional members and the CUDA launches of one call;
+  4. K2m (bucket_accumulate_mma) against its plain version and
      against K2, bit for bit, at the four prove shapes, at the G1 MSM's
      shape and at the flagged PlonK prove's (2^15 + 6 points, c = 11), each
      timed in turns with K2;
@@ -532,12 +534,35 @@ def _cuda_launches(ctx, fn):
     return n or None
 
 
+def _k2_shape(ctx, gs, slots, mma=False):
+    """The chunks a lane of K2's (K2m's) chunk kernel sums at once for gs's
+    group and its chunk length for a call of `slots` sorted slots
+    (kernels.k2_members, k2_chunk); (None, None) in a rehearsal, where the
+    plain version runs."""
+    from zksnake_tpu_torch.backend import kernels
+
+    if ctx.device.type != "cuda":
+        return None, None
+    members = kernels.k2_members(gs, mma)
+    return members, kernels.k2_chunk(slots, members)
+
+
+def _in_plain_form(gs, sums, members):
+    """K2's or K2m's sums in their plain version's form, the affine normal
+    form: as they are, or brought there where the build sums in projective
+    coordinates (members 0)."""
+    from zksnake_tpu_torch.backend import kernels
+
+    return kernels.affine_normal_form(gs, sums) if members == 0 else sums
+
+
 def _k2_inputs(ctx, curve_name, group, logn, c, seed=0x2B, n=None):
-    """One MSM's sorted windows: n points (2^logn unless given) (i % 64 + 1) G
-    of `group` with seeded random scalars, sorted for window size c."""
+    """One MSM's sorted windows: n distinct points (2^logn unless given) of
+    `group` with seeded random scalars, sorted for window size c."""
     from zksnake_tpu_torch.backend.curve_ops import get_group_spec
     from zksnake_tpu_torch.backend.msm import scalars_to_device, sort_by_digit
     from zksnake_tpu_torch.curves import get_curve_module
+    from zksnake_tpu_torch.scripts.k2_chunk_sweep import distinct_points
 
     cm = get_curve_module(curve_name, ctx.device)
     curve = cm._curve
@@ -546,57 +571,100 @@ def _k2_inputs(ctx, curve_name, group, logn, c, seed=0x2B, n=None):
     n = n or 1 << logn
     for _ in range(n * (group - 1)):  # G2 takes the n draws that follow G1's
         rng.randrange(curve.r)
-    P, _ = _tiled_points(gs, cm, -(-n // 64) * 64, ctx.device)
-    P = gs.map(lambda t: t[:, :n].contiguous(), P)
+    P = distinct_points(gs, cm, n, ctx.device, seed + group)
     s = scalars_to_device([rng.randrange(curve.r) for _ in range(n)], curve.r, ctx.device)
     pts, starts, lens, _, _ = sort_by_digit(gs, P, s, c)
     return gs, pts, starts, lens
 
 
+def _eip7594_k2_inputs(ctx):
+    """The EIP-7594 request's K2 call (k2_chunk_sweep.eip7594_inputs: 57
+    fixed-base MSMs over 4096 - 64 distinct bases); 3 MSMs over 64 - 8 when
+    rehearsing."""
+    from zksnake_tpu_torch.scripts.k2_chunk_sweep import eip7594_inputs
+
+    if ctx.rehearse:
+        return eip7594_inputs(ctx.device, N=64, cell=8, jobs=3)
+    return eip7594_inputs(ctx.device)
+
+
 def phase_k2(ctx):
-    """K2 against its chunked plain version, limb for limb, at the four
-    prove shapes and at the G1 MSM's 2^20, c = 13 shape."""
+    """K2 against its plain version (affine normal form), limb for limb, at
+    the four prove shapes, at the G1 MSM's 2^20, c = 13 shape and at the
+    EIP-7594 request's call (57 fixed-base MSMs of 24 x 4032 slots, c =
+    11, BLS12-381 G1), over distinct points (the sums of the projective
+    order, BN254's G1, brought to that form first); timed beside two bounds,
+    the additions at RCB15's mixed add (11 or 13 products) and at
+    batch-affine's 6 (portbench/peaks.py), and the exceptional members
+    counted."""
+    from zksnake_tpu_torch import metrics
     from zksnake_tpu_torch.backend import kernels
 
-    T = kernels.K2_CHUNK
     prove = (PROVE_LOGN, 11) if not ctx.rehearse else (9, 7)
     shapes = [(cv, g) + prove for cv in K2_CURVES for g in (1, 2)]
     shapes.append(("BN254", 1) + ((MSM_LOGN, 13) if not ctx.rehearse else (10, 9)))
+    shapes.append(("eip7594", 1, None, None))
     rows = []
     for curve_name, group, logn, c in shapes:
-        gs, pts, starts, lens = _k2_inputs(ctx, curve_name, group, logn, c)
-        got = kernels.bucket_accumulate(gs, pts, starts, lens)
+        if curve_name == "eip7594":
+            gs, pts, starts, lens, c, jobs = _eip7594_k2_inputs(ctx)
+            curve_name, points = "BLS12_381", pts.shape[-1] * jobs
+        else:
+            gs, pts, starts, lens = _k2_inputs(ctx, curve_name, group, logn, c)
+            jobs, points = 1, 1 << logn
+        metrics.enable()
+        metrics.reset()
+        with metrics.phase("k2"):
+            got = kernels.bucket_accumulate(gs, pts, starts, lens)
+        odd = metrics.report()["k2"].get("bucket_exceptional")
+        metrics.enable(False)
+        metrics.reset()
         t0 = time.perf_counter()
-        want = kernels.bucket_accumulate_plain(gs, pts, starts, lens, chunk=T)
+        want = kernels.bucket_accumulate_plain(gs, pts, starts, lens, affine=True)
         ctx.sync()
         plain_ms = (time.perf_counter() - t0) * 1e3
-        err = int((got.long() - want.long()).abs().max())
+        W_, B2 = starts.shape
+        members, T = _k2_shape(ctx, gs, W_ * pts.shape[-1])
+        err = int((_in_plain_form(gs, got, members).long() - want.long()).abs().max())
         if err != 0:
-            raise AssertionError(f"K2 {curve_name} G{group} 2^{logn}: kernel != chunked plain "
+            raise AssertionError(f"K2 {curve_name} G{group} {points} points: kernel != plain "
                                  f"(max |err| {err})")
         ms = ctx.time_ms(lambda: kernels.bucket_accumulate(gs, pts, starts, lens), 3)
-        W_, B2 = starts.shape
-        adds = int(lens.sum())  # mixed adds this data needs
-        chunks = int(kernels.chunk_table(lens)[-1])
+        adds = int(lens.sum())  # additions this data needs
+        chunks = T and int(kernels.chunk_table(lens, T)[-1])
         nbytes = 4 * (pts.numel() + starts.numel() + lens.numel() + got.numel())
         bms, bby = _k2_bound(gs, adds, nbytes, False)
-        row = {"curve": curve_name, "group": group, "points": 1 << logn, "c": c,
+        ams, aby = _k2_affine_bound(gs, adds, nbytes)
+        row = {"curve": curve_name, "group": group, "points": points, "c": c, "jobs": jobs,
                "windows": W_, "buckets": B2, "max_run": int(lens.max()), "mixed_adds": adds,
-               "chunk": T, "chunks": chunks, "max_abs_err": err, "ms": ms,
-               "plain_ms": plain_ms, "bound_ms": bms, "bound_by": bby}
+               "chunk": T, "members": members, "chunks": chunks, "max_abs_err": err,
+               "bucket_exceptional": odd,
+               "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": bby,
+               "affine_bound_ms": ams, "affine_bound_by": aby}
         if not rows:
             row["cuda_launches_per_call"] = _cuda_launches(
                 ctx, lambda: kernels.bucket_accumulate(gs, pts, starts, lens))
         rows.append(row)
-        log(f"[3] K2 bucket_accumulate {curve_name} G{group} 2^{logn} points c={c} "
-            f"({W_}x{B2} runs, longest {row['max_run']}, {adds} mixed adds; T = {T}, "
-            f"{chunks} chunks): bit-identical to the chunked plain version; kernel {ms:.3f} ms, "
-            f"plain {plain_ms:.1f} ms, bound {bms:.4f} ms ({bby})"
+        log(f"[3] K2 bucket_accumulate {curve_name} G{group} {points} points c={c}"
+            f"{f' ({jobs} fixed-base MSMs)' if jobs > 1 else ''} ({W_}x{B2} runs, longest "
+            f"{row['max_run']}, {adds} additions; T = {T}, K = {members}, {chunks} "
+            f"chunks, {odd} exceptional): "
+            f"bit-identical to the affine plain version"
+            f"{' once in normal form' if members == 0 else ''}; kernel {ms:.3f} ms, plain "
+            f"{plain_ms:.1f} ms, bounds {bms:.4f} ms at RCB15's products ({bby}), {ams:.4f} ms "
+            f"at batch-affine's ({aby})"
             + ("" if "cuda_launches_per_call" not in row else
                f"; {row['cuda_launches_per_call'] or 'not measured:'} CUDA launches a call"))
         del pts, got, want
     ctx.detail["k2"] = rows
     ctx.kernels["bucket_accumulate"] = rows[0]
+
+
+def _k2_affine_bound(gs, adds, nbytes):
+    """K2's bound as portbench/peaks.py prices it: the additions at
+    batch-affine's 6 products (18 for G2), each a CIOS product."""
+    prods = adds * 6 * (1 if gs.group == 1 else 3)
+    return bound(nbytes, [(prods * cios_imads(gs.fs.nl // 2), IMAD_OPS_S)])
 
 
 def _k2_bound(gs, adds, nbytes, mma):
@@ -617,15 +685,15 @@ def _k2_bound(gs, adds, nbytes, mma):
 
 
 def phase_k2m(ctx):
-    """K2m against its chunked plain version (K3's products in K2's order)
-    and against K2, limb for limb, at the four prove shapes, at the G1
+    """K2m against its plain version (K3's products, affine normal form;
+    the projective order's sums, BN254's G1, brought to that form) and
+    against K2, limb for limb, at the four prove shapes, at the G1
     MSM's 2^20, c = 13 shape and at the flagged PlonK prove's (2^15 + 6
     points, c = 11, BN254 G1); timed in turns with K2 at each. Then K2 and
     K2m on overlapping runs (four windows of 2^8 points, c = 7) against
     their plain versions."""
     from zksnake_tpu_torch.backend import kernels
 
-    T = kernels.K2_CHUNK
     prove = (PROVE_LOGN, 11) if not ctx.rehearse else (9, 7)
     shapes = [(cv, g) + prove + (None,) for cv in K2_CURVES for g in (1, 2)]
     shapes.append(("BN254", 1) + ((MSM_LOGN, 13) if not ctx.rehearse else (10, 9)) + (None,))
@@ -638,13 +706,15 @@ def phase_k2m(ctx):
         got = kernels.bucket_accumulate_mma(gs, pts, starts, lens)
         k2 = kernels.bucket_accumulate(gs, pts, starts, lens)
         t0 = time.perf_counter()
-        want = kernels.bucket_accumulate_plain(gs, pts, starts, lens, mode="mma", chunk=T)
+        want = kernels.bucket_accumulate_plain(gs, pts, starts, lens, mode="mma", affine=True)
         ctx.sync()
         plain_ms = (time.perf_counter() - t0) * 1e3
-        err = int((got.long() - want.long()).abs().max())
+        W_, B2 = starts.shape
+        members, T = _k2_shape(ctx, gs, W_ * n, mma=True)
+        err = int((_in_plain_form(gs, got, members).long() - want.long()).abs().max())
         where = f"K2m {curve_name} G{group} {n} points c={c}"
         if err != 0:
-            raise AssertionError(f"{where}: kernel != chunked plain (max |err| {err})")
+            raise AssertionError(f"{where}: kernel != plain (max |err| {err})")
         if not ctx.torch.equal(got, k2):
             raise AssertionError(f"{where}: kernel != K2")
         # in turns, in one call: K2m, K2, K2, K2m
@@ -652,9 +722,8 @@ def phase_k2m(ctx):
                 "k2": lambda: kernels.bucket_accumulate(gs, pts, starts, lens)}
         turns = [ctx.time_ms(runs[k], 3) for k in ("k2m", "k2", "k2", "k2m")]
         ms, k2_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
-        W_, B2 = starts.shape
         adds = int(lens.sum())
-        chunks = int(kernels.chunk_table(lens)[-1])
+        chunks = T and int(kernels.chunk_table(lens, T)[-1])
         nbytes = 4 * (pts.numel() + starts.numel() + lens.numel() + got.numel())
         bms, bby = _k2_bound(gs, adds, nbytes, True)
         row = {"curve": curve_name, "group": group, "points": n, "c": c,
@@ -663,8 +732,8 @@ def phase_k2m(ctx):
                "turns_ms": turns, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": bby}
         rows.append(row)
         log(f"[4] K2m bucket_accumulate_mma {curve_name} G{group} {n} points c={c} "
-            f"({W_}x{B2} runs, {adds} mixed adds, {chunks} chunks): bit-identical to the "
-            f"chunked plain version and to K2; K2m {ms:.3f} ms, K2 {k2_ms:.3f} ms (turns "
+            f"({W_}x{B2} runs, {adds} additions, {chunks} chunks): bit-identical to the "
+            f"plain version and to K2; K2m {ms:.3f} ms, K2 {k2_ms:.3f} ms (turns "
             + " ".join(f"{t:.3f}" for t in turns)
             + f"), plain {plain_ms:.1f} ms, bound {bms:.4f} ms ({bby})")
         del pts, got, want, k2
@@ -672,7 +741,7 @@ def phase_k2m(ctx):
     ctx.kernels["bucket_accumulate_mma"] = rows[0]
     # overlapping runs, as a direct call may give them: more chunks than the
     # scratch holds, which the fold sums from their points; K2 and K2m
-    # against their chunked plain versions
+    # against their plain versions
     import numpy as np
 
     torch = ctx.torch
@@ -686,19 +755,21 @@ def phase_k2m(ctx):
         starts = torch.minimum(torch.from_numpy(
             rng.integers(0, n + 1, size=(W_, B2)).astype(np.int32)), n - lens)
         starts, lens = starts.to(ctx.device), lens.to(ctx.device)
-        chunks = int(kernels.chunk_table(lens)[-1])
-        cap = kernels.chunk_scratch(W_, B2, n)
+        members, T = _k2_shape(ctx, gs, W_ * n)
+        T = T or kernels.K2_CHUNK  # a rehearsal: the plain version has no chunks
+        chunks = int(kernels.chunk_table(lens, T)[-1])
+        cap = kernels.chunk_scratch(W_, B2, n, T)
         if chunks <= cap:
             raise AssertionError(f"overlapping runs: {chunks} chunks fit the scratch ({cap})")
         for name, mode in (("bucket_accumulate", True), ("bucket_accumulate_mma", "mma")):
             got = getattr(kernels, name)(gs, pts, starts, lens)
-            want = kernels.bucket_accumulate_plain(gs, pts, starts, lens, mode=mode, chunk=T)
-            if not torch.equal(got, want):
+            want = kernels.bucket_accumulate_plain(gs, pts, starts, lens, mode=mode, affine=True)
+            if not torch.equal(_in_plain_form(gs, got, members), want):
                 raise AssertionError(f"{name} {curve_name} G{group}, overlapping runs: "
-                                     f"kernel != chunked plain")
+                                     f"kernel != plain")
         log(f"[4] K2 and K2m {curve_name} G{group}, overlapping runs ({W_}x{B2} runs over "
-            f"{n} points, {chunks} chunks, scratch {cap}): bit-identical to their chunked "
-            f"plain versions")
+            f"{n} points, {chunks} chunks, scratch {cap}): bit-identical to their plain "
+            f"versions")
 
 
 def _msm_2e20(ctx, tag, group=1):

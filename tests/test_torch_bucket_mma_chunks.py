@@ -1,13 +1,14 @@
-"""K2m's chunked plain version against K2's, and the chunk table both
-kernels size their scratch from, on the CPU.
+"""K2m's plain version against K2's, and the chunk table both kernels size
+their scratch from, on the CPU.
 
 K2m (csrc/bucket_mma.cu) runs K2's chunk and fold kernels
-(csrc/bucket_chunks.cuh) on the tensor-core product, so it sums in K2's
-order: its plain version, which its wrapper runs on the CPU, is
-bucket_accumulate_plain(..., mode="mma", chunk=kernels.K2_CHUNK), K2's
-chunked plain version with every field product through K3's plain version.
-Both products are canonical, so the two are equal limb for limb, also where
-runs are longer than a chunk and the fold runs. Here, on seeded runs:
+(csrc/bucket_chunks.cuh) on the tensor-core product. Both return every
+bucket sum in affine normal form, which is unique, so K2m's plain version,
+which its wrapper runs on the CPU, is bucket_accumulate_plain(...,
+mode="mma", affine=True): K2's plain version (the rank-order walk, then one
+batched normalisation) with every field product through K3's plain
+version. Both products are canonical, so the two are equal limb for limb.
+Here, on seeded runs:
 
 - runs of 0, 1, T, T + 1 and 2T + 1 points over two windows, G1 and G2 of
   both curves;
@@ -15,12 +16,13 @@ runs are longer than a chunk and the fold runs. Here, on seeded runs:
   sub-buckets, with empty buckets and runs longer than 2T;
 - overlapping runs (each window's runs total more than its n points), which
   the plain versions take as they take any runs;
+- kernels.k2_chunk, the chunk length the wrapper passes for each build;
 - kernels.chunk_table and kernels.chunk_scratch, the chunk table and the
   scratch the wrapper gives both kernels without waiting for the card: the
   scratch holds every chunk of runs that total at most n points a window,
-  and overlapping runs have chunks past it, whose buckets the fold's cold
-  instance sums from their points (the card tests hold both kernels to
-  their plain versions there).
+  and overlapping runs have chunks past it, whose buckets the fold sums
+  from their points (the card tests hold both kernels to their plain
+  versions there).
 """
 
 import random
@@ -47,8 +49,8 @@ def point_rows(gs, points, perm):
 
 
 def both_plains(gs, pts, starts, lens):
-    k2 = kernels.bucket_accumulate_plain(gs, pts, starts, lens, chunk=T)
-    k2m = kernels.bucket_accumulate_plain(gs, pts, starts, lens, mode="mma", chunk=T)
+    k2 = kernels.bucket_accumulate_plain(gs, pts, starts, lens, affine=True)
+    k2m = kernels.bucket_accumulate_plain(gs, pts, starts, lens, mode="mma", affine=True)
     return k2, k2m
 
 
@@ -67,13 +69,14 @@ def test_mma_chunked_plain_equals_k2_chunked_plain(curve, group):
     lens = np.array([run_lens, run_lens[::-1]], dtype=np.int32)
     starts = lead + np.concatenate([np.zeros((2, 1), np.int64), np.cumsum(lens, 1)[:, :-1]], 1)
     starts, lens = torch.from_numpy(starts.astype(np.int32)), torch.from_numpy(lens)
-    k2, k2m = both_plains(gs, pts, starts, lens)
+    k2 = kernels.bucket_accumulate_plain(gs, pts, starts, lens, affine=True)
+    # the wrapper's CPU route: the affine plain version with K3's products
+    k2m = kernels.bucket_accumulate_mma(gs, pts, starts, lens)
     assert torch.equal(k2m, k2)
-    # the wrapper's CPU route is the chunked plain version with K3's products
-    assert torch.equal(kernels.bucket_accumulate_mma(gs, pts, starts, lens), k2m)
-    # a run longer than T is folded: not the rank-order walk's limbs
-    assert not torch.equal(k2m[:, :, 0, 3], kernels.bucket_accumulate_plain(
-        gs, pts, starts, lens, mode="mma")[:, :, 0, 3])
+    # the normal form of K3's rank-order walk: not the walk's limbs
+    rank = kernels.bucket_accumulate_plain(gs, pts, starts, lens, mode="mma")
+    assert not torch.equal(k2m[:, :, 0, 3], rank[:, :, 0, 3])
+    assert torch.equal(k2m, kernels.affine_normal_form(gs.plain("mma"), rank))
 
 
 @pytest.mark.parametrize("curve", CURVES)
@@ -115,7 +118,8 @@ def test_mma_chunked_plain_on_overlapping_runs(group):
 @pytest.mark.parametrize("chunk", [1, 4, T])
 def test_chunk_table_and_scratch_on_overlapping_runs(chunk):
     """Every run the whole row: the table counts every run's chunks, in
-    int64, and passes the scratch, so the cold fold takes those buckets."""
+    int64, and passes the scratch, so the fold sums those buckets from
+    their points."""
     Wn, n, B2 = 2, 16, 3
     lens = torch.full((Wn, B2), n, dtype=torch.int32)
     lens[1, 2] = 5
@@ -158,8 +162,19 @@ def test_chunk_table_of_sorted_runs_and_of_none():
     rng = random.Random(5)
     s = tmsm.scalars_to_device([rng.randrange(r) for _ in range(n)], r, "cpu")
     _, starts, lens, _, _ = tmsm.sort_by_digit(gs, P, s, 5)
-    coff = kernels.chunk_table(lens)
+    coff = kernels.chunk_table(lens, T)
     assert int(coff[-1]) == int(((lens.long() + T - 1) // T).sum())
-    assert int(coff[-1]) <= kernels.chunk_scratch(lens.shape[0], lens.shape[1], n)
-    assert kernels.chunk_table(torch.zeros((0, 4), dtype=torch.int32)).numel() == 0
-    assert kernels.chunk_scratch(0, 4, n) == 1
+    assert int(coff[-1]) <= kernels.chunk_scratch(lens.shape[0], lens.shape[1], n, T)
+    assert kernels.chunk_table(torch.zeros((0, 4), dtype=torch.int32), T).numel() == 0
+    assert kernels.chunk_scratch(0, 4, n, T) == 1
+
+
+@pytest.mark.parametrize("slots,members,want", [
+    (1_550_000, 0, T), (5_500_000, 0, T), (1_550_000, 16, 4), (3_100_000, 16, 6),
+    (5_500_000, 16, 8), (1, 16, 2), (1 << 36, 16, 16)])
+def test_chunk_length_follows_the_build(slots, members, want):
+    """kernels.k2_chunk: K2_CHUNK where the build sums one chunk a thread
+    in projective coordinates (k2_members 0); in the affine order
+    round(sqrt(slots / 90,000)) within 2 .. 16 (4 at a Groth16 MSM's 1.55M
+    slots, 8 at the EIP-7594 call's 5.5M)."""
+    assert kernels.k2_chunk(slots, members) == want

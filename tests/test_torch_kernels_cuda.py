@@ -8,8 +8,10 @@ the card:
 
 K1, K2, K2m and K4 (16- and 24-limb builds) and K3 must match their plain
 versions limb for limb (integer field arithmetic has no tolerance; K2 and
-K2m their chunked plain versions, on overlapping runs too, and K2m K2), and
-so must the relayout
+K2m their plain version in affine normal form, on overlapping runs, planted
+doublings and cancellations and the EIP-7594 request's fixed-base rows too,
+the projective order's sums, BN254's G1, once brought to that form, and
+K2m K2), and so must the relayout
 kernels S1-S8 and the G2 probe S9 on ragged edges (a start of n - 1, R not a
 multiple of 4, planes not a multiple of any tile, all-ones bytes); each
 wrapper must count one launch per call, refuse what its kernel does not take,
@@ -34,6 +36,7 @@ from zksnake_tpu_torch.backend.curve_ops import get_group_spec
 from zksnake_tpu_torch.backend.field import FieldSpec
 from zksnake_tpu_torch.curves import get_curve_module
 from zksnake_tpu_torch.scripts import debug_g2_block
+from zksnake_tpu_torch.scripts.k2_chunk_sweep import distinct_points, eip7594_inputs
 
 from torch_support import CURVES
 
@@ -104,44 +107,62 @@ def test_bucket_kernel_matches_plain(card, curve, group):
     got = kernels.bucket_accumulate(gs, pts, starts, lens)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["bucket_accumulate"] == before + 1
-    want = kernels.bucket_accumulate_plain(gs, pts, starts, lens, chunk=kernels.K2_CHUNK)
-    assert torch.equal(got, want)
+    want = kernels.bucket_accumulate_plain(gs, pts, starts, lens, affine=True)
+    assert_plain_sums(gs, got, want)
 
 
-# K2 and K2m: the wrapper and the plain version's product mode; both sum in
-# K2's chunked order (chunk=K2_CHUNK)
+# K2 and K2m: the wrapper and the plain version's product mode; the plain
+# version returns the sums in affine normal form (affine=True)
 BUCKET_KERNELS = {"k2": ("bucket_accumulate", True), "k2m": ("bucket_accumulate_mma", "mma")}
+
+
+def assert_plain_sums(gs, got, want, kernel="k2"):
+    """K2's or K2m's sums `got` are their plain version's `want` (affine
+    normal form): limb for limb where the build sums in affine coordinates,
+    and once brought to that form where it sums in the projective order
+    (kernels.k2_members 0, BN254's G1), which returns projective sums."""
+    if kernels.k2_members(gs, kernel == "k2m"):
+        assert torch.equal(got, want)
+    else:
+        assert torch.equal(kernels.affine_normal_form(gs, got), want)
+
+
+def point_planes(gs, cm, n, device, seed):
+    """(L, nl, n) X and Y planes of k2_chunk_sweep.distinct_points."""
+    return torch.stack(gs.leaves(distinct_points(gs, cm, n, device, seed))[:2 * gs.group])
 
 
 @pytest.mark.parametrize("kernel", sorted(BUCKET_KERNELS))
 @pytest.mark.parametrize("curve", CURVES)
 @pytest.mark.parametrize("group", [1, 2])
 def test_bucket_kernel_chunks_match_plain_at_the_edges(card, curve, group, kernel):
-    """K2 and K2m against their chunked plain versions, limb for limb, where
-    the chunk table is ragged: a run of 2100 points (more than one block's
-    chunks), a block whose chunks run from window 0 through window 1 into
-    window 2, runs of 1, T, T + 1 and 2T + 1 points, empty buckets and an
-    empty window. The operands are random canonical field elements: the
-    formulas are the same arithmetic whether or not they are points."""
-    T = kernels.K2_CHUNK
+    """K2 and K2m against their plain version, limb for limb, where the
+    chunk table is ragged: a run of 5000 points (more than one block's
+    k2_members x 128 chunks), a block whose chunks run from window 0
+    through window 1 into window 2, runs of 1, T, T + 1 and 2T + 1 points
+    (T the wrapper's chunk length, kernels.k2_chunk), empty buckets and an
+    empty window, over distinct points."""
     name, mode = BUCKET_KERNELS[kernel]
-    gs = get_group_spec(get_curve_module(curve, card)._curve, group)
-    run_lens = [[0, 2100, 1, T + 1, 0, T, 2 * T + 1, 100],
+    cm = get_curve_module(curve, card)
+    gs = get_group_spec(cm._curve, group)
+    n, lead = 5300, 5
+    members = kernels.k2_members(gs, kernel == "k2m")
+    T = kernels.k2_chunk(3 * n, members)
+    assert -(-5000 // T) > 128 * max(members, 1)
+    run_lens = [[0, 5000, 1, T + 1, 0, T, 2 * T + 1, 100],
                 [3, 0, T, 15, 40, 1, 0, 2], [0] * 8]
-    n, lead = 2304, 5
     lens = torch.tensor(run_lens, dtype=torch.int32)
     starts = lead + torch.cumsum(lens, 1, dtype=torch.int32) - lens
-    L = 2 * group
-    planes = random_elems(gs.fs, L * 3 * n, 60 + group).reshape(gs.fs.nl, L, 3, n)
-    pts = planes.permute(1, 0, 2, 3).contiguous().to(card)
+    pts = point_planes(gs, cm, 3 * n, card, 60 + group).reshape(2 * group, gs.fs.nl, 3, n)
+    pts = pts.contiguous()
     before = kernels.LAUNCHES[name]
     got = getattr(kernels, name)(gs, pts, starts.to(card), lens.to(card))
     torch.cuda.synchronize()
     assert kernels.LAUNCHES[name] == before + 1
     want = kernels.bucket_accumulate_plain(gs, pts, starts.to(card), lens.to(card), mode=mode,
-                                           chunk=T)
-    assert torch.equal(got, want)
-    assert torch.equal(got[:, :, 2], want[:, :, 2])  # the empty window: identities
+                                           affine=True)
+    assert_plain_sums(gs, got, want, kernel)
+    assert_plain_sums(gs, got[:, :, 2:], want[:, :, 2:], kernel)  # the empty window
 
 
 @pytest.mark.parametrize("kernel", sorted(BUCKET_KERNELS))
@@ -154,25 +175,92 @@ def test_bucket_kernels_match_plain_on_overlapping_runs(card, curve, group, kern
     chunks past it, one across its end, are folded from their points. K2
     and K2m must compute their plain versions' function on them, limb for
     limb."""
-    T = kernels.K2_CHUNK
     name, mode = BUCKET_KERNELS[kernel]
     gs = get_group_spec(get_curve_module(curve, card)._curve, group)
     n, B2 = 300, 16
+    T = kernels.k2_chunk(2 * n, kernels.k2_members(gs, kernel == "k2m"))
     rng = np.random.default_rng(80 + group)
     lens = torch.from_numpy(rng.integers(0, n + 1, size=(2, B2)).astype(np.int32))
     lens[0, :3] = torch.tensor([n, 1, 2 * T + 1], dtype=torch.int32)
     starts = torch.from_numpy(rng.integers(0, n + 1, size=(2, B2)).astype(np.int32))
     starts = torch.minimum(starts, n - lens)
-    coff, cap = kernels.chunk_table(lens), kernels.chunk_scratch(2, B2, n)
+    coff, cap = kernels.chunk_table(lens, T), kernels.chunk_scratch(2, B2, n, T)
     first = coff - (lens.reshape(-1).long() + T - 1) // T
     assert int(coff[-1]) > cap and bool(((first < cap) & (coff > cap)).any())
-    L = 2 * group
-    planes = random_elems(gs.fs, L * 2 * n, 90 + group).reshape(gs.fs.nl, L, 2, n)
-    pts = planes.permute(1, 0, 2, 3).contiguous().to(card)
+    cm = get_curve_module(curve, card)
+    pts = point_planes(gs, cm, 2 * n, card, 90 + group).reshape(2 * group, gs.fs.nl, 2, n)
+    pts = pts.contiguous()
     starts, lens = starts.to(card), lens.to(card)
     got = getattr(kernels, name)(gs, pts, starts, lens)
     torch.cuda.synchronize()
-    want = kernels.bucket_accumulate_plain(gs, pts, starts, lens, mode=mode, chunk=T)
+    want = kernels.bucket_accumulate_plain(gs, pts, starts, lens, mode=mode, affine=True)
+    assert_plain_sums(gs, got, want, kernel)
+
+
+@pytest.mark.parametrize("kernel", sorted(BUCKET_KERNELS))
+@pytest.mark.parametrize("curve", CURVES)
+@pytest.mark.parametrize("group", [1, 2])
+def test_bucket_kernels_take_the_exceptional_cases(card, curve, group, kernel):
+    """Runs over four points a, b, c, d and their negations that meet every
+    exceptional case of the chunk kernel's batch-affine add (a repeated
+    point: a doubling; a point then its negation: the identity mid-run,
+    then the identity taking the next point; runs that cancel whole) and
+    chunks that cancel, whose partials the fold skips. K2 and K2m must give
+    their plain version's sums (assert_plain_sums) and, in the affine order,
+    count those members in `bucket_exceptional`; on distinct points, and in
+    the projective order, whose complete add has no exceptional case, the
+    count is 0."""
+    from zksnake_tpu_torch import metrics
+
+    name, mode = BUCKET_KERNELS[kernel]
+    cm = get_curve_module(curve, card)
+    gs = get_group_spec(cm._curve, group)
+    gen = cm.g1() if group == 1 else cm.g2()
+    a, b, c, d = [gen * k for k in (3, 5, 7, 11)]
+    row = [a, a, b, a, -a, c, d, a, -a, b, -b, a, -a, a, a, a, -b, c, c, -c, d, -d, -d]
+    X, Y, _ = gs.points_to_device(row * 4, card)
+    planted = torch.stack(([X] if group == 1 else list(X)) + ([Y] if group == 1 else list(Y)))
+    n = planted.shape[-1]
+    fresh = point_planes(gs, cm, n, card, 7 + group)
+    pts = torch.stack([planted, fresh], dim=2).contiguous()
+    starts = torch.tensor([[0, 3, 7, 9, 13, 17, 23, 0, 46], [0, 3, 7, 9, 13, 17, 23, 0, 46]],
+                          dtype=torch.int32, device=card)
+    lens = torch.tensor([[3, 4, 2, 4, 4, 6, 23, 0, n - 46]] * 2, dtype=torch.int32, device=card)
+
+    def counted(rows):
+        metrics.enable()
+        metrics.reset()
+        try:
+            with metrics.phase("k2"):
+                got = getattr(kernels, name)(gs, pts[:, :, rows].contiguous(),
+                                             starts[rows].contiguous(), lens[rows].contiguous())
+            return got, metrics.report()["k2"]["bucket_exceptional"]
+        finally:
+            metrics.enable(False)
+            metrics.reset()
+
+    got, odd = counted([0, 1])
+    want = kernels.bucket_accumulate_plain(gs, pts, starts, lens, mode=mode, affine=True)
+    assert_plain_sums(gs, got, want, kernel)
+    assert (odd > 0) == (kernels.k2_members(gs, kernel == "k2m") > 0)
+    got, odd = counted([1])
+    assert_plain_sums(gs, got, want[:, :, 1:], kernel)
+    assert odd == 0
+
+
+@pytest.mark.parametrize("kernel", sorted(BUCKET_KERNELS))
+def test_bucket_kernels_at_the_eip7594_fixed_base_rows(card, kernel):
+    """The EIP-7594 request's K2 call (k2_chunk_sweep.eip7594_inputs),
+    reduced: BLS12-381 G1, MSMs over the prefix of 256 of a FixedBaseTable
+    of 320 distinct bases (fixed_base_window's c), each MSM one row of W *
+    256 slots sorted by |digit|, 6 jobs in one call. K2 and K2m against
+    their plain version, limb for limb."""
+    name, mode = BUCKET_KERNELS[kernel]
+    gs, pts, starts, lens, c, jobs = eip7594_inputs(card, N=320, cell=64, jobs=6, seed=3)
+    assert pts.shape[2] == jobs == 6
+    assert pts.shape[3] == -(-16 * FieldSpec.get(gs.curve.r).nl // c) * 256
+    got = getattr(kernels, name)(gs, pts, starts, lens)
+    want = kernels.bucket_accumulate_plain(gs, pts, starts, lens, mode=mode, affine=True)
     assert torch.equal(got, want)
 
 
@@ -180,8 +268,8 @@ def test_bucket_kernels_match_plain_on_overlapping_runs(card, curve, group, kern
 @pytest.mark.parametrize("group", [1, 2])
 def test_bucket_mma_kernel_matches_plain_and_k2(card, curve, group):
     """K2m on ragged runs (empty buckets in the spread top window) against
-    its chunked plain version and against K2, limb for limb: K2m sums in
-    K2's order with canonical products."""
+    its plain version (assert_plain_sums) and against K2, limb for limb:
+    both sum in one order, with canonical products."""
     cm = get_curve_module(curve, card)
     gs = get_group_spec(cm._curve, group)
     gen = cm.g1() if group == 1 else cm.g2()
@@ -197,8 +285,8 @@ def test_bucket_mma_kernel_matches_plain_and_k2(card, curve, group):
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["bucket_accumulate_mma"] == before["bucket_accumulate_mma"] + 1
     assert kernels.LAUNCHES["bucket_accumulate"] == before["bucket_accumulate"]
-    assert torch.equal(got, kernels.bucket_accumulate_plain(gs, pts, starts, lens, mode="mma",
-                                                            chunk=kernels.K2_CHUNK))
+    assert_plain_sums(gs, got, kernels.bucket_accumulate_plain(gs, pts, starts, lens, mode="mma",
+                                                               affine=True), "k2m")
     assert torch.equal(got, kernels.bucket_accumulate(gs, pts, starts, lens))
 
 
@@ -301,7 +389,7 @@ def test_eip7594_request_on_card_equals_the_reference(card):
     of 64), through the benchmark's adapter: every commitment, cell and
     cell proof equal to the plain reference's, its 774 MSMs in one K4 pass
     of one window each (the SRS's fixed-base table), 3,121,152 points in
-    all."""
+    all, and no K2 member meeting an exceptional case."""
     from portbench import harness
     from portbench.protocols import kzg_cells
     from zksnake_tpu_torch import metrics
@@ -326,6 +414,7 @@ def test_eip7594_request_on_card_equals_the_reference(card):
     msm = rep["kzg.cells.msm"]
     assert (msm["reduce_kernel_passes"], msm["msm_points"]) == (1, 6 * (4096 + 128 * 4032))
     assert (msm["msm_windows"], msm["msm_fixed_points"]) == (774, msm["msm_points"])
+    assert msm["bucket_exceptional"] == 0  # no doubling or cancellation in K2 on random blobs
     got = harness.check(proto, None, [(0, 1.0, out)], seed)
     assert got == {"checked": 1, "mismatched": 0, "wrong": []}
 

@@ -140,7 +140,7 @@ def test_bucket_mma_plain_matches_k2_plain(curve, group):
     starts = torch.from_numpy(np.stack([s for s, _ in runs]))
     lens = torch.from_numpy(np.stack([l for _, l in runs]))
     assert int((lens == 0).sum()) >= 2
-    want = kernels.bucket_accumulate_plain(gs_t, pts, starts, lens)
+    want = kernels.bucket_accumulate_plain(gs_t, pts, starts, lens, affine=True)
     got = kernels.bucket_accumulate_mma(gs_t, pts, starts, lens)  # the CPU route
     assert torch.equal(got, want)
 

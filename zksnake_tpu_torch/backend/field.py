@@ -189,9 +189,10 @@ class FieldSpec:
         return self._dev[key]
 
     def words(self, which):
-        """ctypes uint32 array of 32-bit words ("p" or "one") for the kernels."""
+        """ctypes uint32 array of 32-bit words ("p", "one" or "r3", R^3 mod
+        p) for the kernels."""
         if which not in self._words:
-            v = {"p": self.p, "one": self.R}[which]
+            v = {"p": self.p, "one": self.R, "r3": pow(self.R, 3, self.p)}[which]
             vals = [(v >> (32 * i)) & 0xFFFFFFFF for i in range(self.nl // 2)]
             self._words[which] = (ctypes.c_uint32 * len(vals))(*vals)
         return self._words[which]

@@ -34,6 +34,7 @@ Nothing here imports a CUDA toolchain at module import.
 
 import ctypes
 import functools
+import math
 import os
 import shutil
 import subprocess
@@ -53,12 +54,13 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-# K2's chunk length T and fold lanes G, the constants of csrc/bucket.cu:
-# every run is summed in chunks of at most T consecutive points, then each
-# bucket's chunks are folded by G lanes: contiguous segments in chunk order,
-# then a pairwise tree (scripts/k2_chunk_sweep.py measures other values)
+# K2 sums every run in chunks of at most T consecutive points, then folds
+# each bucket's chunks (csrc/bucket.cu). The kernel source's Shape fixes,
+# per build and group, how many chunks a lane sums at once (k2_members);
+# the wrapper passes T (k2_chunk). K2_CHUNK is T where a thread sums one
+# chunk in projective coordinates (k2_members 0: BN254's G1), and the
+# chunk length msm.fixed_base_window's cost model assumes.
 K2_CHUNK = 8
-K2_FOLD_LANES = 4
 # library -> (source, extra nvcc flags); K2, K2m and K4 are built once per
 # limb count
 _SOURCES = {
@@ -86,7 +88,7 @@ _LOCK = threading.Lock()
 # K2's C interface (csrc/bucket.cu), and K2m's (csrc/bucket_mma.cu): the
 # same with K3's tile bytes before the stream
 _VP, _I, _LL, _U32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint32
-_K2_ARGTYPES = [_VP] * 6 + [_I] * 4 + [_LL, _LL, _VP, _U32, _VP, _VP, _I]
+_K2_ARGTYPES = [_VP] * 6 + [_I] * 4 + [_LL, _LL, _I, _VP, _U32, _VP, _VP, _VP, _I, _VP]
 BUCKET_ARGTYPES = {False: _K2_ARGTYPES + [_VP], True: _K2_ARGTYPES + [_VP, _VP]}
 # K4's two entry points (csrc/bucket_reduce.cu): the field constants and 3b
 # as K2 takes them, then the stream
@@ -166,8 +168,8 @@ def build(names=None):
 def ptxas_report(name):
     """[(kernel, registers, spill store bytes)] of library `name`, from its
     nvcc -Xptxas -v log; a kernel is named by its identifier and, for the
-    field templates, Fp or Fp2 (G1 or G2), and "cold" for the fold's cold
-    instance (its template's one bool set)."""
+    field templates, Fp or Fp2 (G1 or G2), and "normal" for the fold's
+    normal-form instance (its template's one bool set)."""
     import re
 
     path = os.path.join(BUILD_DIR, f"{name}.ptxas.txt")
@@ -191,7 +193,7 @@ def ptxas_report(name):
                     field = f"NW={words.group(1)}"
                 elif ident.startswith("g2_"):  # S9's kernels: <variant> where templated
                     field = f"V={words.group(1)}" if words else ""
-                tags = [field] * bool(field) + ["cold"] * ("Lb1E" in mangled)
+                tags = [field] * bool(field) + ["normal"] * ("Lb1E" in mangled)
                 kernel = ident + (f"<{', '.join(tags)}>" if tags else "")
                 spills = 0
             m = re.search(r"(\d+) bytes spill stores", line)
@@ -234,12 +236,20 @@ def _lib(name):
                     getattr(lib, fn).argtypes = argtypes
                     getattr(lib, fn).restype = i
             else:
-                mma = name.startswith("bucket_mma")
-                fn = lib.zk_bucket_accumulate_mma if mma else lib.zk_bucket_accumulate
-                fn.argtypes = BUCKET_ARGTYPES[mma]
-                fn.restype = i
+                bucket_lib(lib, name.startswith("bucket_mma"))
             _LIBS[name] = lib
         return _LIBS[name]
+
+
+def bucket_lib(lib, mma):
+    """K2's (mma=False) or K2m's library `lib` (ctypes.CDLL), its entry
+    points typed: zk_bucket_accumulate[_mma] and zk_bucket_members."""
+    fn = lib.zk_bucket_accumulate_mma if mma else lib.zk_bucket_accumulate
+    fn.argtypes = BUCKET_ARGTYPES[mma]
+    fn.restype = ctypes.c_int
+    lib.zk_bucket_members.argtypes = [ctypes.c_int]
+    lib.zk_bucket_members.restype = ctypes.c_int
+    return lib
 
 
 def _check(rc, what):
@@ -479,70 +489,94 @@ def _run_sums(gs, rows, base, lens):
     return acc
 
 
-def bucket_accumulate_plain(gs, pts, starts, lens, mode=True, chunk=None):
-    """Plain version of K2 on any device. `chunk=None` sums every run in
-    rank order (the JAX package's per-round loop, zksnake_tpu/backend/
-    msm.py:370-390); `chunk=T` follows K2's order (csrc/bucket.cu): each
-    run cut into ceil(len / T) chunks of T consecutive points from its
-    start, each chunk summed from the identity in rank order, then each
-    bucket's m chunk partials folded by G = K2_FOLD_LANES lanes with the
-    complete projective add: lane j folds chunks
-    j s .. min(m, (j + 1) s) - 1, s = ceil(m / G), in order, then lane j
-    adds lane j + d for d = 1, 2, 4, ... (j a multiple of 2d, lane j + d
-    not empty). A bucket with one chunk keeps its partial. Both orders give
-    the same points; with every run at most T long, the same limbs. `mode`
+def affine_normal_form(gs, sums):
+    """Projective points (3|6, nl, ...) -> the same points as (X, Y, 1), or
+    (0, 1, 0) for the identity, Montgomery form: K2's output form, the one
+    representative of each point. 1 / Z (conj(Z) / norm for G2) comes from
+    one batched inversion on the host (utils.batch_modinv); the products
+    are gs's."""
+    from ..utils import batch_modinv
+
+    fs, F, dev = gs.fs, gs.F, sums.device
+    shape = sums.shape
+    X, Y, Z = gs.unflatten([t.reshape(shape[1], -1) for t in sums])
+    p = fs.p
+    if gs.group == 1:
+        z = fs.from_mont_host(Z)
+        norms = z
+    else:
+        z = list(zip(fs.from_mont_host(Z[0]), fs.from_mont_host(Z[1])))
+        norms = [(a * a + b * b) % p for a, b in z]
+    live = [i for i, v in enumerate(norms) if v]
+    inv = [0] * len(norms)
+    for i, v in zip(live, batch_modinv([norms[i] for i in live], p)):
+        inv[i] = v
+
+    def mont(vals):
+        return fs.to_device(fs.to_mont_host(vals), dev)
+
+    if gs.group == 1:
+        zi = mont(inv)
+    else:
+        zi = (mont([a * v % p for (a, _), v in zip(z, inv)]),
+              mont([-b * v % p for (_, b), v in zip(z, inv)]))
+    ax, ay = F.mul_many([(X, zi), (Y, zi)])
+    inf = torch.tensor([not v for v in norms], device=dev)
+    zero, one = F.zeros(inf.shape, dev), F.one(inf.shape, dev)
+    out = (F.select(inf, zero, ax), F.select(inf, one, ay), F.select(inf, zero, one))
+    return torch.stack(gs.leaves(out)).reshape(shape)
+
+
+def bucket_accumulate_plain(gs, pts, starts, lens, mode=True, affine=False):
+    """Plain version of K2 on any device: every run summed from the identity
+    in rank order (the JAX package's per-round loop, zksnake_tpu/backend/
+    msm.py:370-390), with the complete mixed add. `affine=True` brings the
+    sums to affine normal form (affine_normal_form: one batched inversion a
+    call, on the host), which is K2's output where it sums in affine
+    coordinates (k2_members > 0): unique, so the kernel, which sums in its
+    own order (csrc/bucket.cu), equals it limb for limb; the projective
+    order's sums equal it once brought to that form. `mode`
     picks the field product (GroupSpec.plain): True K1's plain version,
-    "mma" K3's. `mode="mma", chunk=T` is K2m's plain version: K2m sums in
-    K2's order, and canonical products make the two equal limb for limb.
+    "mma" K3's; `mode="mma", affine=True` is K2m's plain version, the same
+    limbs.
 
     pts: (L, nl, W, n) sorted planes (K2's input layout); starts, lens:
-    (W, B2) int32. Returns the (3 or 6, nl, W, B2) projective bucket sums."""
+    (W, B2) int32. Returns the (3 or 6, nl, W, B2) bucket sums."""
     gs = gs.plain(mode)
     L, nl, Wn, n = pts.shape
     B2 = starts.shape[1]
-    dev = pts.device
     nb = Wn * B2
-    lens = lens.reshape(-1).long()
     rows = pts.reshape(L, nl, Wn * n)
-    base = (torch.arange(nb, device=dev) // B2) * n + starts.reshape(-1).long()
-    if chunk is None:
-        return _run_sums(gs, rows, base, lens).reshape(-1, nl, Wn, B2)
-    G = K2_FOLD_LANES
-    nch = (lens + chunk - 1) // chunk
-    first = torch.cumsum(nch, 0) - nch  # each bucket's first chunk
-    owner = torch.repeat_interleave(torch.arange(nb, device=dev), nch)  # chunk -> bucket
-    rank = (torch.arange(owner.numel(), device=dev) - first[owner]) * chunk
-    part = _run_sums(gs, rows, base[owner] + rank,
-                     torch.clamp(lens[owner] - rank, max=chunk))
-    # lane (b, j) folds its segment of bucket b's chunks
-    s = (nch + G - 1) // G
-    j = torch.arange(G, device=dev)
-    lo = (j[None] * s[:, None]).reshape(-1)
-    seg = torch.clamp(nch.repeat_interleave(G) - lo, 0, None).minimum(s.repeat_interleave(G))
-    fst = first.repeat_interleave(G) + lo
-    acc = torch.stack(gs.leaves(gs.identity((nb * G,), dev)))
-    some = torch.nonzero(seg > 0).squeeze(1)
-    acc[:, :, some] = part[:, :, fst[some]]
-    for k in range(1, int(seg.max()) if seg.numel() else 0):
-        live = torch.nonzero(seg > k).squeeze(1)
-        P = gs.unflatten(list(acc[:, :, live]))
-        Q = gs.unflatten(list(part[:, :, fst[live] + k]))
-        acc[:, :, live] = torch.stack(gs.leaves(gs.add(P, Q)))
-    # the tree over the G lanes of each bucket
-    acc = acc.reshape(acc.shape[0], nl, nb, G)
-    d = 1
-    while d < G:
-        jj = torch.arange(0, G - d, 2 * d, device=dev)
-        pair = (jj[None] + d) * s[:, None] < nch[:, None]  # (nb, pairs): lane j + d not empty
-        bi, pi = torch.nonzero(pair, as_tuple=True)
-        P = gs.unflatten(list(acc[:, :, bi, jj[pi]]))
-        Q = gs.unflatten(list(acc[:, :, bi, jj[pi] + d]))
-        acc[:, :, bi, jj[pi]] = torch.stack(gs.leaves(gs.add(P, Q)))
-        d *= 2
-    return acc[..., 0].reshape(-1, nl, Wn, B2)
+    base = (torch.arange(nb, device=pts.device) // B2) * n + starts.reshape(-1).long()
+    sums = _run_sums(gs, rows, base, lens.reshape(-1).long()).reshape(-1, nl, Wn, B2)
+    return affine_normal_form(gs, sums) if affine else sums
 
 
-def chunk_table(lens, chunk=K2_CHUNK):
+def k2_members(gs, mma=False):
+    """The chunks a lane of K2's (K2m's) chunk kernel sums at once for
+    gs's group, read from the build (its Shape's K): K > 0 sums in affine
+    coordinates and returns the affine normal form; 0 sums one chunk a
+    thread in projective coordinates and returns projective sums."""
+    lib = _lib(f"bucket_mma{gs.fs.nl}" if mma else f"bucket{gs.fs.nl}")
+    return lib.zk_bucket_members(gs.group)
+
+
+def k2_chunk(slots, members):
+    """The chunk length K2 and K2m take for a call of `slots` = W n sorted
+    slots, where a lane sums `members` chunks at once (k2_members). In the
+    projective order (members 0), K2_CHUNK. In the affine order,
+    round(sqrt(slots / 90,000)), within 2 .. 16: the longer the chunk, the
+    fewer partials the fold adds (at three times the chunk kernel's time a
+    point) but the fewer lanes the chunk kernel has to fill the card; on
+    the H100 this lands on the fastest T measured at 1.55M slots (a Groth16
+    MSM at 2^16: 4), 3.1M (two of them: 4 to 6) and 5.5M (the EIP-7594
+    request's call: 8)."""
+    if members == 0:
+        return K2_CHUNK
+    return max(2, min(16, round(math.sqrt(slots / 90_000))))
+
+
+def chunk_table(lens, chunk):
     """K2's and K2m's chunk table for the runs `lens` (any shape; in (w, b)
     order): the int64 inclusive prefix sum of ceil(len / chunk), on lens's
     device. Nothing is read back: the kernels size their scratch by
@@ -552,24 +586,26 @@ def chunk_table(lens, chunk=K2_CHUNK):
     return torch.cumsum(nch.div_(chunk, rounding_mode="floor"), 0)
 
 
-def chunk_scratch(W, B2, n, chunk=K2_CHUNK):
+def chunk_scratch(W, B2, n, chunk):
     """The chunk partials K2's and K2m's scratch holds for W windows of B2
     runs over rows of n points: max(1, (W n + (chunk - 1) W B2) // chunk).
     That is every chunk where each window's runs total at most n points,
     as sort_by_digit's do (a window's sum of ceil(len / chunk) is then at
     most (n + (chunk - 1) B2) / chunk). Runs that overlap can have more;
-    a bucket with a chunk past the scratch is folded from its points (the
-    fold kernel's cold instance, csrc/bucket_chunks.cuh), so the kernels
-    compute the same function of any runs and the host never waits for the
-    chunk count."""
+    the fold kernel sums a bucket with a chunk past the scratch from its
+    points (csrc/bucket_chunks.cuh), so the kernels compute the same
+    function of any runs and the host never waits for the chunk count."""
     return max(1, (W * n + (chunk - 1) * W * B2) // chunk)
 
 
 def _bucket_launch(gs, pts, starts, lens, mma, build=None):
     """Launch K2 (mma=False) or K2m on the CUDA tensors' device. `build`, a
-    (C function, chunk length) pair, stands in another build of the same
-    C interface (scripts/k2_chunk_sweep.py); only the port's own launches
-    count."""
+    (library, chunk length) pair (the library typed by bucket_lib), stands
+    in another build of the same C interface or another chunk length
+    (scripts/k2_chunk_sweep.py); only the port's own launches count. With
+    metrics on, the kernels count their exceptional members (a doubling, a
+    cancellation, an identity) into a device counter read after the call:
+    `bucket_exceptional`."""
     dev = pts.device
     fs = gs.fs
     nl = fs.nl
@@ -585,51 +621,57 @@ def _bucket_launch(gs, pts, starts, lens, mma, build=None):
         raise ValueError(f"{name}: starts shape {tuple(starts.shape)}")
     B2 = starts.shape[1]
     out = torch.empty((3 * gs.group, nl, Wn, B2), dtype=torch.int32, device=dev)
-    consts = [ctypes.addressof(fs.words("p")), fs.pinv32, ctypes.addressof(fs.words("one")),
-              ctypes.addressof(gs.b3_words()), gs.b3_small()]
-    if mma:
-        consts.append(fs.mma_tiles(dev).data_ptr())
     own = build is None
-    if own:
-        fn = (_lib(f"bucket_mma{nl}").zk_bucket_accumulate_mma if mma
-              else _lib(f"bucket{nl}").zk_bucket_accumulate)
-        chunk = K2_CHUNK
-    else:
-        fn, chunk = build
+    lib, chunk = (_lib(f"bucket_mma{nl}" if mma else f"bucket{nl}"), None) if own else build
+    fn = lib.zk_bucket_accumulate_mma if mma else lib.zk_bucket_accumulate
+    members = lib.zk_bucket_members(gs.group)
+    chunk = chunk or k2_chunk(Wn * n, members)
     cap = chunk_scratch(Wn, B2, n, chunk)
     if cap >= 1 << 31:
         raise ValueError(f"{name}: {cap} chunks of scratch, more than the kernels index")
     coff = chunk_table(lens, chunk)
-    part = torch.empty((3 * gs.group, nl, cap), dtype=torch.int32, device=dev)
+    # affine partials and an identity flag a chunk, or projective ones
+    planes = L * nl + 1 if members else 3 * gs.group * nl
+    part = torch.empty((planes, cap), dtype=torch.int32, device=dev)
+    exc = torch.zeros(1, dtype=torch.int64, device=dev) if metrics.enabled() else None
     args = [pts.data_ptr(), starts.data_ptr(), lens.data_ptr(), coff.data_ptr(),
-            part.data_ptr(), out.data_ptr(), nl, gs.group, Wn, B2, n, cap, *consts]
+            part.data_ptr(), out.data_ptr(), nl, gs.group, Wn, B2, n, cap, chunk,
+            ctypes.addressof(fs.words("p")), fs.pinv32, ctypes.addressof(fs.words("one")),
+            ctypes.addressof(fs.words("r3")), ctypes.addressof(gs.b3_words()), gs.b3_small(),
+            None if exc is None else exc.data_ptr()]
+    if mma:
+        args.append(fs.mma_tiles(dev).data_ptr())
     if own:
         LAUNCHES[name] += 1
     with torch.cuda.device(dev):
         rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
     _check(rc, name)
+    if exc is not None:
+        metrics.count("bucket_exceptional", int(exc.item()))
     return out
 
 
 def bucket_accumulate(gs, pts, starts, lens):
-    """K2 on CUDA, its chunked plain version (chunk=K2_CHUNK) on the CPU
-    (layouts as above)."""
+    """K2 on CUDA, its plain version in affine normal form on the CPU
+    (bucket_accumulate_plain(..., affine=True); layouts as above). On CUDA
+    the sums are in affine normal form where the build sums in affine
+    coordinates (k2_members > 0); in the projective order (BN254's G1)
+    they are projective: the same points, the same limbs as K2m's."""
     dev = _device_of(pts, starts, lens)
     if dev.type == "cpu":
-        return bucket_accumulate_plain(gs, pts, starts, lens, chunk=K2_CHUNK)
+        return bucket_accumulate_plain(gs, pts, starts, lens, affine=True)
     if dev.type != "cuda":
         raise ValueError(f"bucket_accumulate: unsupported device {dev}")
     return _bucket_launch(gs, pts, starts, lens, mma=False)
 
 
 def bucket_accumulate_mma(gs, pts, starts, lens):
-    """K2m on CUDA, its plain version on the CPU: K2's chunked plain version
-    with every field product through K3's plain version
-    (bucket_accumulate_plain(..., mode="mma", chunk=K2_CHUNK)); K2's
-    layouts."""
+    """K2m on CUDA, its plain version on the CPU: K2's with every field
+    product through K3's plain version (bucket_accumulate_plain(...,
+    mode="mma", affine=True)); K2's layouts."""
     dev = _device_of(pts, starts, lens)
     if dev.type == "cpu":
-        return bucket_accumulate_plain(gs, pts, starts, lens, mode="mma", chunk=K2_CHUNK)
+        return bucket_accumulate_plain(gs, pts, starts, lens, mode="mma", affine=True)
     if dev.type != "cuda":
         raise ValueError(f"bucket_accumulate_mma: unsupported device {dev}")
     return _bucket_launch(gs, pts, starts, lens, mma=True)

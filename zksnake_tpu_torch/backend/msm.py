@@ -273,8 +273,13 @@ def fixed_base_window(n, nbits):
     """The window size c of the fixed-base path for n bases and nbits-bit
     scalars: the c in 8..13 with the fewest point-op products in the path,
     K2's n ceil(nbits / c) mixed adds (11 products each with a small b3),
-    about that count over K2's chunk length of fold adds and the one
-    window's c 2^(c - 1) reduction adds in K4 (complete adds, 14 each)."""
+    about that count over K2_CHUNK of fold adds and the one window's
+    c 2^(c - 1) reduction adds in K4 (complete adds, 14 each). That prices
+    K2's projective order; BLS12-381's G1, the path's group, takes the
+    affine one (6 products an add and a share of an inversion, at
+    kernels.k2_chunk's T), which this model does not price yet (ROADMAP
+    queue 4): the c it picks is the one the EIP-7594 cell was measured
+    at."""
     def products(c):
         adds = n * -(-nbits // c)
         return 11 * adds + 14 * (adds // kernels.K2_CHUNK + c * (1 << (c - 1)))

@@ -11,23 +11,24 @@
 //
 // Input, scratch and output are K2's (bucket.cu): pts (L, nl, W, n) sorted
 // planes, starts/lens (W, B2), the int64 chunk table coff (W B2,), the
-// chunk partials part (3 or 6, nl, cap) with cap from the rows' length
-// (a bucket with chunks past it, which only overlapping runs have, the
-// fold's cold instance sums from its points, on the CIOS product: both
-// products are canonical, so the limbs are the same), and out (3 or 6, nl,
-// W, B2) projective bucket sums, G1 and G2.
+// chunk partials part (L nl + 1, cap) with cap from the rows' length (a
+// bucket with chunks past it, which only overlapping runs have, the fold
+// sums from its points), and out (3 or 6, nl, W, B2) bucket sums in affine
+// normal form, G1 and G2.
 //
 // Design. K2m is K2's chunk and fold kernels (bucket_chunks.cuh), the same
-// chunk length T, the same fold over G lanes and its fixed tree, and K2's
+// chunk length T, K chunks a lane, the same fold over G lanes, and K2's
 // SmallB3 where 3b is a small integer, instantiated with MmaProduct below
-// in place of the CIOS product. It sums in K2's order with canonical
-// products, so its output equals K2's limb for limb, and
-// kernels.bucket_accumulate_plain(..., mode="mma", chunk=T) follows the
-// same steps with K3's plain product. A product is collective over the
-// warp (MmaProduct::kWarp), so no lane leaves early: each lane runs its
-// warp's longest chunk (at most T steps) in the chunk kernel and its
-// warp's longest segment in the fold, computes past its end on a point it
-// may read, and keeps nothing there. Each product:
+// in place of the CIOS product. Its output, like K2's, is the affine normal
+// form, which is unique, so it equals K2's limb for limb, and
+// kernels.bucket_accumulate_plain(..., mode="mma", affine=True) computes it
+// with K3's plain product. A product is collective over the warp
+// (MmaProduct::kWarp), so no lane leaves early: each lane runs its warp's
+// longest chunk in the chunk kernel (every member of every step, a member
+// with nothing to add multiplying by one) and its warp's longest segment
+// in the fold, computes past its end on a point it may read, and keeps
+// nothing there; the lanes meet again after each inversion's loop
+// (field.cuh finv_with). Each product:
 //   1. each lane forms T = a b in 32-bit words (the schoolbook of K3) and
 //      writes the NB = 2 nl bytes of T mod R into the warp's (NB x 32) byte
 //      tile in shared memory;
@@ -40,15 +41,14 @@
 // memory once per block, beside each warp's byte and int32 tiles: 39 KB a
 // 128-thread block for BN254, 61 KB for BLS12-381 (Shape below).
 //
-// What bounds it. The work is the adds K2 does, 11 or 13 products each (33
-// or 39 for G2), each 2 NW^2 multiply-adds for T and 3 NB^2 tensor-core
-// MACs: operations. What the card spends is latency: a product is two
-// tile products with four warp barriers and 3 NB x 32 int32 words through
-// shared memory, so a warp waits on every product; chunks give about
-// W n / T threads (K2's 400k at the prove shape, against 24,576 when one
-// thread walked a whole bucket), so as many warps as the registers allow
-// hide each other's waits. The product is a __noinline__ function so the
-// G2 variants (39 products per add) build in reasonable time.
+// What bounds it. The work is the products K2 makes (six a point in the
+// chunk kernel, 18 for G2; the fold's mixed adds, 11 or 13, 33 or 39 for
+// G2), each 2 NW^2 multiply-adds for T and 3 NB^2 tensor-core MACs:
+// operations. What the card spends is latency: a product is two tile
+// products with four warp barriers and 3 NB x 32 int32 words through
+// shared memory, so a warp waits on every product, and as many warps as
+// the registers allow hide each other's waits. The product is a
+// __noinline__ function so the G2 variants build in reasonable time.
 
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -195,20 +195,19 @@ struct MmaProduct {
   }
 };
 
-// K2m's counterpart of K2's Shape (bucket.cu): threads a block, per group;
-// the blocks are K2's. The chunk kernel reads its points straight from
-// device memory (STAGES = 0; bucket_chunks.cuh refuses a ring for a
-// warp-collective product): a cp.async ring beside the product's tiles
-// made K2m 3-44% slower on the H100 (PERF.md §6).
+// K2m's counterpart of K2's Shape (bucket.cu): threads a block, chunks a
+// lane sums at once (0: the projective order) and blocks an SM should
+// hold, per group; K2's BT and K, so the two sum in one order and return
+// the same limbs; no register cap (none measured).
 template <class F>
 struct Shape;
 template <int NW>
 struct Shape<zk::Fp<NW>> {
-  static constexpr int BT = 128, STAGES = 0;
+  static constexpr int BT = 128, K = NW == 8 ? 0 : 16, MINB = 1;
 };
 template <int NW>
 struct Shape<zk::Fp2<NW>> {
-  static constexpr int BT = 64, STAGES = 0;
+  static constexpr int BT = 64, K = 16, MINB = 1;
 };
 
 }  // namespace
@@ -218,14 +217,18 @@ extern "C" {
 // K2's interface (bucket.cu) plus mats, the device tile bytes of K3.
 int zk_bucket_accumulate_mma(const void* pts, const void* starts, const void* lens,
                              const void* coff, void* part, void* out, int nl, int group, int W,
-                             int B2, long long n, long long cap, const uint32_t* p,
-                             uint32_t pinv, const uint32_t* one, const uint32_t* b3, int b3k,
-                             const void* mats, void* stream) {
+                             int B2, long long n, long long cap, int T, const uint32_t* p,
+                             uint32_t pinv, const uint32_t* one, const uint32_t* r3,
+                             const uint32_t* b3, int b3k, void* exc, const void* mats,
+                             void* stream) {
   if (nl != ZK_NL || cap < 1 || cap >= (1LL << 31) || mats == nullptr)
     return (int)cudaErrorInvalidValue;
   return zk::bucket::launch<ZK_NL / 2, MmaProduct, Shape>(
-      pts, starts, lens, coff, part, out, group, W, B2, n, cap, p, pinv, one, b3, b3k, mats,
-      (cudaStream_t)stream);
+      pts, starts, lens, coff, part, out, group, W, B2, n, cap, T, p, pinv, one, r3, b3, b3k,
+      exc, mats, (cudaStream_t)stream);
 }
+
+// Shape's K of the group's build (1: G1, 2: G2; -1 for another).
+int zk_bucket_members(int group) { return zk::bucket::members<ZK_NL / 2, Shape>(group); }
 
 }  // extern "C"

@@ -134,6 +134,14 @@ __device__ __forceinline__ Fp<NW> fzero() {
   return r;
 }
 
+template <int NW>
+__device__ __forceinline__ bool feq(const Fp<NW>& a, const Fp<NW>& b) {
+  uint32_t d = 0;
+#pragma unroll
+  for (int j = 0; j < NW; ++j) d |= a.c[j] ^ b.c[j];
+  return d == 0;
+}
+
 // --------------------------------------------------------------- Fp2 ------
 // Karatsuba, as zksnake_tpu.backend.curve_ops.DevFq2.mul_many.
 
@@ -183,6 +191,11 @@ __device__ __forceinline__ Fp2<NW> fsub(const Fp2<NW>& x, const Fp2<NW>& y,
   return r;
 }
 
+template <int NW>
+__device__ __forceinline__ bool feq(const Fp2<NW>& x, const Fp2<NW>& y) {
+  return feq(x.a, y.a) & feq(x.b, y.b);
+}
+
 // 3b as a small integer K (G1: 3b = K; G2: 3b = K + K u). A product with
 // it is doublings and additions: the same field element as the product
 // with 3b in Montgomery form, for a fraction of a product's work.
@@ -226,6 +239,197 @@ template <int NW>
 struct SmallB3Of {
   static constexpr int G1 = NW == 12 ? 12 : 9, G2 = NW == 12 ? 12 : 0;
 };
+
+// ---------------------------------------------------------- inversion ---
+// a^-1 mod p by Bernstein and Yang's safegcd (ePrint 2019/266) on signed
+// 30-bit limbs: the constant-time batches of 30 half-delta divsteps of
+// libsecp256k1's modinv32 (its divsteps_30, update_de_30, update_fg_30 and
+// normalize_30, for N = ceil(32 NW / 30) limbs: 9 for BN254, 13 for
+// BLS12-381), repeated until g = 0, so every lane of a warp runs its warp's
+// longest count. No product: divsteps are shifts, adds and selects, and a
+// batch's updates 4 N + 2 N 32 x 32-bit products. Then one Montgomery
+// product with R^3 mod p turns (a R)^-1 into the Montgomery form of a^-1.
+
+template <int NW>
+struct InvParams {
+  static constexpr int N = (32 * NW + 29) / 30;
+  int32_t m[N];      // p in 30-bit limbs
+  uint32_t minv30;   // p^-1 mod 2^30
+  Fp<NW> r3;         // R^3 mod p
+};
+
+struct Divsteps {
+  int32_t u, v, q, r;  // the transition matrix, scaled by 2^30
+};
+
+constexpr int32_t kM30 = 0x3FFFFFFF;
+
+__device__ __forceinline__ int32_t divsteps_30(int32_t zeta, uint32_t f, uint32_t g,
+                                               Divsteps& t) {
+  uint32_t u = 1, v = 0, q = 0, r = 1;
+#pragma unroll
+  for (int i = 0; i < 30; ++i) {
+    const uint32_t c1 = (uint32_t)(zeta >> 31);  // zeta < 0
+    const uint32_t c2 = 0u - (g & 1);            // g odd
+    const uint32_t x = (f ^ c1) - c1, y = (u ^ c1) - c1, z = (v ^ c1) - c1;
+    g += x & c2;
+    q += y & c2;
+    r += z & c2;
+    const uint32_t c3 = c1 & c2;
+    zeta = (zeta ^ (int32_t)c3) - 1;
+    f += g & c3;
+    u += q & c3;
+    v += r & c3;
+    g >>= 1;
+    u <<= 1;
+    v <<= 1;
+  }
+  t = Divsteps{(int32_t)u, (int32_t)v, (int32_t)q, (int32_t)r};
+  return zeta;
+}
+
+// [d, e] = t [d, e] / 2^30 mod p, in (-2p, p) on both sides
+template <int N>
+__device__ __forceinline__ void update_de(int32_t (&d)[N], int32_t (&e)[N], const Divsteps& t,
+                                          const int32_t (&m)[N], uint32_t minv30) {
+  const int32_t u = t.u, v = t.v, q = t.q, r = t.r;
+  const int32_t sd = d[N - 1] >> 31, se = e[N - 1] >> 31;
+  int32_t md = (u & sd) + (v & se), me = (q & sd) + (r & se);
+  int64_t cd = (int64_t)u * d[0] + (int64_t)v * e[0];
+  int64_t ce = (int64_t)q * d[0] + (int64_t)r * e[0];
+  md -= (int32_t)((minv30 * (uint32_t)cd + (uint32_t)md) & kM30);
+  me -= (int32_t)((minv30 * (uint32_t)ce + (uint32_t)me) & kM30);
+  cd = (cd + (int64_t)m[0] * md) >> 30;
+  ce = (ce + (int64_t)m[0] * me) >> 30;
+#pragma unroll
+  for (int i = 1; i < N; ++i) {
+    cd += (int64_t)u * d[i] + (int64_t)v * e[i] + (int64_t)m[i] * md;
+    ce += (int64_t)q * d[i] + (int64_t)r * e[i] + (int64_t)m[i] * me;
+    d[i - 1] = (int32_t)cd & kM30;
+    cd >>= 30;
+    e[i - 1] = (int32_t)ce & kM30;
+    ce >>= 30;
+  }
+  d[N - 1] = (int32_t)cd;
+  e[N - 1] = (int32_t)ce;
+}
+
+// [f, g] = t [f, g] / 2^30, exactly
+template <int N>
+__device__ __forceinline__ void update_fg(int32_t (&f)[N], int32_t (&g)[N], const Divsteps& t) {
+  const int32_t u = t.u, v = t.v, q = t.q, r = t.r;
+  int64_t cf = ((int64_t)u * f[0] + (int64_t)v * g[0]) >> 30;
+  int64_t cg = ((int64_t)q * f[0] + (int64_t)r * g[0]) >> 30;
+#pragma unroll
+  for (int i = 1; i < N; ++i) {
+    cf += (int64_t)u * f[i] + (int64_t)v * g[i];
+    cg += (int64_t)q * f[i] + (int64_t)r * g[i];
+    f[i - 1] = (int32_t)cf & kM30;
+    cf >>= 30;
+    g[i - 1] = (int32_t)cg & kM30;
+    cg >>= 30;
+  }
+  f[N - 1] = (int32_t)cf;
+  g[N - 1] = (int32_t)cg;
+}
+
+// r in (-2p, p), negated where sign < 0 -> [0, p)
+template <int N>
+__device__ __forceinline__ void normalize_s30(int32_t (&r)[N], int32_t sign,
+                                              const int32_t (&m)[N]) {
+  const int32_t neg = sign >> 31;
+  int32_t add = r[N - 1] >> 31;
+#pragma unroll
+  for (int i = 0; i < N; ++i) r[i] = ((r[i] + (m[i] & add)) ^ neg) - neg;
+#pragma unroll
+  for (int i = 1; i < N; ++i) {
+    r[i] += r[i - 1] >> 30;
+    r[i - 1] &= kM30;
+  }
+  add = r[N - 1] >> 31;
+#pragma unroll
+  for (int i = 0; i < N; ++i) r[i] += m[i] & add;
+#pragma unroll
+  for (int i = 1; i < N; ++i) {
+    r[i] += r[i - 1] >> 30;
+    r[i - 1] &= kM30;
+  }
+}
+
+// a (< p) as 30-bit limbs, and back (even bit offsets: two limbs a word)
+template <int NW, int N>
+__device__ __forceinline__ void to_s30(const Fp<NW>& a, int32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const int w = 30 * i / 32, s = 30 * i % 32;
+    uint32_t x = a.c[w] >> s;
+    if (s > 2 && w + 1 < NW) x |= a.c[w + 1] << (32 - s);
+    r[i] = (int32_t)(x & kM30);
+  }
+}
+template <int NW, int N>
+__device__ __forceinline__ Fp<NW> from_s30(const int32_t (&r)[N]) {
+  Fp<NW> a;
+#pragma unroll
+  for (int w = 0; w < NW; ++w) {
+    const int i = 32 * w / 30, s = 32 * w % 30;
+    uint32_t x = (uint32_t)r[i] >> s;
+    if (i + 1 < N) x |= (uint32_t)r[i + 1] << (30 - s);
+    a.c[w] = x;
+  }
+  return a;
+}
+
+// a^-1 mod p of a canonical a as an integer (0 -> 0); out of line: one call
+// a step of many products
+template <int NW>
+__device__ __noinline__ Fp<NW> inv_int(const Fp<NW> a, const InvParams<NW> I) {
+  constexpr int N = InvParams<NW>::N;
+  int32_t d[N], e[N], f[N], g[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    d[i] = 0;
+    e[i] = 0;
+    f[i] = I.m[i];
+  }
+  e[0] = 1;
+  to_s30<NW, N>(a, g);
+  int32_t zeta = -1;  // -(delta + 1/2), delta = 1/2
+  // safegcd needs fewer than (49 d + 57) / 17 divsteps for d-bit inputs
+  constexpr int kMaxBatches = ((49 * 32 * NW + 57) / 17 + 29) / 30 + 1;
+  for (int it = 0; it < kMaxBatches; ++it) {
+    int32_t live = 0;
+#pragma unroll
+    for (int i = 0; i < N; ++i) live |= g[i];
+    if (live == 0) break;
+    Divsteps t;
+    zeta = divsteps_30(zeta, (uint32_t)f[0], (uint32_t)g[0], t);
+    update_de<N>(d, e, t, I.m, I.minv30);
+    update_fg<N>(f, g, t);
+  }
+  normalize_s30<N>(d, f[N - 1], I.m);  // f = +-1
+  return from_s30<NW, N>(d);
+}
+
+// The Montgomery form of a^-1 from that of a (a != 0): inv_int, then one
+// product with R^3. Fp2: conj(x) / (x.a^2 + x.b^2). SYNC: the product is
+// collective over the warp, so the lanes meet again after inv_int's loop.
+template <bool SYNC, int NW, class M>
+__device__ __forceinline__ Fp<NW> finv_with(const Fp<NW>& x, const FieldParams<NW>&,
+                                            const InvParams<NW>& I, const M& mul) {
+  const Fp<NW> r = inv_int<NW>(x, I);
+  if constexpr (SYNC) __syncwarp();
+  return mul(r, I.r3);
+}
+template <bool SYNC, int NW, class M>
+__device__ __forceinline__ Fp2<NW> finv_with(const Fp2<NW>& x, const FieldParams<NW>& P,
+                                             const InvParams<NW>& I, const M& mul) {
+  const Fp<NW> ni = finv_with<SYNC>(fadd(mul(x.a, x.a), mul(x.b, x.b), P), P, I, mul);
+  Fp2<NW> r;
+  r.a = mul(x.a, ni);
+  r.b = mul(fsub(fzero<NW>(), x.b, P), ni);
+  return r;
+}
 
 // ------------------------------------------------- limb-plane loads ------
 
@@ -380,6 +584,23 @@ inline FieldParams<NW> field_params(const uint32_t* p, uint32_t pinv, const uint
   }
   P.pinv = pinv;
   return P;
+}
+
+// The inversion's constants from p (NW words), pinv = -p^-1 mod 2^32 and
+// R^3 mod p (NW words).
+template <int NW>
+inline InvParams<NW> inv_params(const uint32_t* p, uint32_t pinv, const uint32_t* r3) {
+  InvParams<NW> I;
+  constexpr int N = InvParams<NW>::N;
+  for (int i = 0; i < N; ++i) {
+    const int w = 30 * i / 32, s = 30 * i % 32;
+    uint32_t x = p[w] >> s;
+    if (s > 2 && w + 1 < NW) x |= p[w + 1] << (32 - s);
+    I.m[i] = (int32_t)(x & kM30);
+  }
+  I.minv30 = (0u - pinv) & (uint32_t)kM30;
+  for (int j = 0; j < NW; ++j) I.r3.c[j] = r3[j];
+  return I;
 }
 
 template <int NW>
