@@ -10,11 +10,16 @@ package's _ntt_core_cg_flat. Every stage splits the halves, runs the
 butterfly, and riffles the halves back together; stage s's twiddle for lane
 i is tw[(i >> s) << s]; a final bit-reversal gather restores natural order.
 The butterfly's product is one K1 launch per stage.
+
+With metrics on, ntt_device and intt_device count `ntt_elements`, the rows
+times the length of each transform, into every open span
+(zksnake_tpu_torch.metrics).
 """
 
 import numpy as np
 import torch
 
+from .. import metrics
 from .field import FieldSpec, mod_add, mod_sub, mont_mul
 
 
@@ -119,10 +124,12 @@ def _ntt(dom: Domain, x, tw):
 
 
 def ntt_device(dom: Domain, x):
+    metrics.count("ntt_elements", x.numel() // x.shape[0])
     return _ntt(dom, x, dom.twiddles(x.device, False))
 
 
 def intt_device(dom: Domain, x):
+    metrics.count("ntt_elements", x.numel() // x.shape[0])
     y = _ntt(dom, x, dom.twiddles(x.device, True))
     return mont_mul(dom.fs, y, dom.fs.const_mont(dom.n_inv, x.device, x.ndim - 1))
 

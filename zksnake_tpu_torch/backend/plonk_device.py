@@ -23,6 +23,15 @@ that runs eagerly on torch tensors. The commitments of one round share the
 SRS and the window size, so they go through one msm_pippenger_many (one
 sort and K2 launch each, one reduction for the round). Proof bytes are
 identical to the host prover's under the same blinding draw.
+
+With metrics on (zksnake_tpu_torch.metrics), each round is a span
+plonk.prove.round1..5 and each round's commitments plonk.prove.msm; inside
+the rounds, plonk.prove.grand_product (R2: the sampled ratios, their
+inversion and prefix product, the copy-constraint check),
+plonk.prove.quotient (R3: from Z_omega to the remainder check) and
+plonk.prove.opening (R5: the linearization and both divisions). The NTTs
+count ntt_elements into every open span: 24n in R1, 33n in R2 and 56n in
+R3, all of them in the quotient, 113n a proof.
 """
 
 import numpy as np
@@ -188,12 +197,13 @@ class PlonkDeviceProver:
             p2 = mont_mul(fr, p1, torch.stack([ext[:, 2], ext[:, 5]], dim=1))
             nomden = intt_device(self.dom4, p2)  # coefficients (nl, 2, 4n)
 
-            nom_s = p2[:, 0, ::4]
-            den_s = p2[:, 1, ::4]
-            ratio = mont_mul(fr, nom_s, mont_inv_batch(fr, den_s.contiguous()))
-            pref = prefix_prod(fr, ratio)
-            acc = torch.cat([self.one_col, pref[:, : n - 1]], dim=-1)
-            ok = bool((pref[:, n - 1 : n] == self.one_col).all())
+            with phase("plonk.prove.grand_product", items=n):
+                nom_s = p2[:, 0, ::4]
+                den_s = p2[:, 1, ::4]
+                ratio = mont_mul(fr, nom_s, mont_inv_batch(fr, den_s.contiguous()))
+                pref = prefix_prod(fr, ratio)
+                acc = torch.cat([self.one_col, pref[:, : n - 1]], dim=-1)
+                ok = bool((pref[:, n - 1 : n] == self.one_col).all())
 
             acc_c = intt_device(self.dom1, acc)
             z_low = mod_sub(fr, acc_c, _pad_last(bl, n))
@@ -214,43 +224,44 @@ class PlonkDeviceProver:
         with phase("plonk.prove.round3", items=n):
             nomden, z, g = self._st["nomden"], self._st["z"], self._st["g"]
             alpha_m, bl = self._m(alpha), self._m(*blinds)
-            z_omega = mont_mul(fr, z, self.roots_cyc)
+            with phase("plonk.prove.quotient", items=n):
+                z_omega = mont_mul(fr, z, self.roots_cyc)
 
-            big = ntt_device(
-                self.dom8,
-                torch.cat(
-                    [
-                        _pad_last(nomden, 8 * n),
-                        _pad_last(z[:, None, :], 8 * n),
-                        _pad_last(z_omega[:, None, :], 8 * n),
-                    ],
-                    dim=1,
-                ),
-            )  # (nl, 4, 8n): nom, den, Z, Z_omega evaluations
-            prod = mont_mul(fr, big[:, 0:2], big[:, 2:4])
-            nz_dz = intt_device(self.dom8, prod)  # (nl, 2, 8n)
+                big = ntt_device(
+                    self.dom8,
+                    torch.cat(
+                        [
+                            _pad_last(nomden, 8 * n),
+                            _pad_last(z[:, None, :], 8 * n),
+                            _pad_last(z_omega[:, None, :], 8 * n),
+                        ],
+                        dim=1,
+                    ),
+                )  # (nl, 4, 8n): nom, den, Z, Z_omega evaluations
+                prod = mont_mul(fr, big[:, 0:2], big[:, 2:4])
+                nz_dz = intt_device(self.dom8, prod)  # (nl, 2, 8n)
 
-            # (Z - 1) * L1 over the 4n domain
-            zm1 = torch.cat([mod_sub(fr, z[:, :1], self.one_col), z[:, 1:]], dim=-1)
-            z1_e = ntt_device(self.dom4, _pad_last(zm1, 4 * n))
-            z1l1 = intt_device(self.dom4, mont_mul(fr, z1_e, self.lagrange4))
+                # (Z - 1) * L1 over the 4n domain
+                zm1 = torch.cat([mod_sub(fr, z[:, :1], self.one_col), z[:, 1:]], dim=-1)
+                z1_e = ntt_device(self.dom4, _pad_last(zm1, 4 * n))
+                z1l1 = intt_device(self.dom4, mont_mul(fr, z1_e, self.lagrange4))
 
-            alpha2 = mont_mul(fr, alpha_m, alpha_m)
-            numer = mod_add(
-                fr,
-                _pad_last(g, 8 * n),
-                mont_mul(fr, mod_sub(fr, nz_dz[:, 0], nz_dz[:, 1]), alpha_m),
-            )
-            numer = mod_add(fr, numer, mont_mul(fr, _pad_last(z1l1, 8 * n), alpha2))
+                alpha2 = mont_mul(fr, alpha_m, alpha_m)
+                numer = mod_add(
+                    fr,
+                    _pad_last(g, 8 * n),
+                    mont_mul(fr, mod_sub(fr, nz_dz[:, 0], nz_dz[:, 1]), alpha_m),
+                )
+                numer = mod_add(fr, numer, mont_mul(fr, _pad_last(z1l1, 8 * n), alpha2))
 
-            # divide by X^n - 1: q block b = sum of numer blocks > b
-            blocks = numer.reshape(fr.nl, 8, n)
-            suffix = [None] * 8
-            suffix[7] = blocks[:, 7]
-            for j in range(6, 0, -1):
-                suffix[j] = mod_add(fr, blocks[:, j], suffix[j + 1])
-            remainder = mod_add(fr, blocks[:, 0], suffix[1])
-            ok = bool((remainder == 0).all())
+                # divide by X^n - 1: q block b = sum of numer blocks > b
+                blocks = numer.reshape(fr.nl, 8, n)
+                suffix = [None] * 8
+                suffix[7] = blocks[:, 7]
+                for j in range(6, 0, -1):
+                    suffix[j] = mod_add(fr, blocks[:, j], suffix[j + 1])
+                remainder = mod_add(fr, blocks[:, 0], suffix[1])
+                ok = bool((remainder == 0).all())
             t = torch.cat(suffix[1:5], dim=-1)  # (nl, 4n), degree <= 3n+5
 
             b_lo, b_hi = bl[:, :1], bl[:, 1:2]
@@ -320,27 +331,28 @@ class PlonkDeviceProver:
         with phase("plonk.prove.round5", items=n):
             z = self._st["z"]
             t_lo, t_mid, t_hi = self._st["t_parts"]
-            # the linearization basis, in the order of the weight vector
-            # (Plonk._linearization_weights)
-            polys = torch.cat(
-                [
-                    _pad_last(self.sel_coeffs, L),  # QL QR QO QM QC
-                    _pad_last(z[:, None, :], L),  # Z
-                    _pad_last(self.idsig_coeffs[:, 5:6], L),  # sigma3
-                    _pad_last(t_lo[:, None, :], L),
-                    _pad_last(t_mid[:, None, :], L),
-                    _pad_last(t_hi[:, None, :], L),
-                    _pad_last(self._st["abc"], L),  # A B C
-                    _pad_last(self.idsig_coeffs[:, 3:5], L),  # sigma1 sigma2
-                ],
-                dim=1,
-            )  # (nl, 15, L)
-            comb = sum_mod(fr, mont_mul(fr, polys, self._m(*weights)[:, :, None]), dim=1)[:, 0]
-            numer = torch.cat([mod_add(fr, comb[:, :1], self._m(const1)), comb[:, 1:]], dim=-1)
-            w_zeta, ok1 = self._divide(numer, zeta, L)
+            with phase("plonk.prove.opening", items=n):
+                # the linearization basis, in the order of the weight vector
+                # (Plonk._linearization_weights)
+                polys = torch.cat(
+                    [
+                        _pad_last(self.sel_coeffs, L),  # QL QR QO QM QC
+                        _pad_last(z[:, None, :], L),  # Z
+                        _pad_last(self.idsig_coeffs[:, 5:6], L),  # sigma3
+                        _pad_last(t_lo[:, None, :], L),
+                        _pad_last(t_mid[:, None, :], L),
+                        _pad_last(t_hi[:, None, :], L),
+                        _pad_last(self._st["abc"], L),  # A B C
+                        _pad_last(self.idsig_coeffs[:, 3:5], L),  # sigma1 sigma2
+                    ],
+                    dim=1,
+                )  # (nl, 15, L)
+                comb = sum_mod(fr, mont_mul(fr, polys, self._m(*weights)[:, :, None]), dim=1)[:, 0]
+                numer = torch.cat([mod_add(fr, comb[:, :1], self._m(const1)), comb[:, 1:]], dim=-1)
+                w_zeta, ok1 = self._divide(numer, zeta, L)
 
-            numer2 = torch.cat([mod_add(fr, z[:, :1], self._m(const2)), z[:, 1:]], dim=-1)
-            w_zw, ok2 = self._divide(_pad_last(numer2, L), zeta_omega, L)
+                numer2 = torch.cat([mod_add(fr, z[:, :1], self._m(const2)), z[:, 1:]], dim=-1)
+                w_zw, ok2 = self._divide(_pad_last(numer2, L), zeta_omega, L)
             raws = [from_mont(fr, w_zeta), from_mont(fr, w_zw)]
         if not (ok1 and ok2):
             raise AssertionError("opening quotient remainder is non-zero")
